@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--layers N]
+
+Run from the root of a checkout on a machine with a CUDA card, the CUDA
+toolkit (nvcc) and PyTorch built for CUDA.  Phases, each printing its own
+lines:
+
+1. card and build — the card's name and power limit (nvidia-smi), then the
+   two CUDA kernels built from ``src/repro_torch/kernels/csrc`` for sm_90a;
+2. kernel vs plain — each kernel against its plain PyTorch version on the
+   card, on the CPU test grids (``tolerance.FUSED_GRID``/``FLASH_GRID``)
+   and at qwen1.5-4b's full-width decode shapes, held to the bounds of
+   ``repro_torch.kernels.tolerance``, with the kernel's time, the plain
+   version's, the least time the card could take (bound) and one PyTorch
+   library call computing the same function or its dot part (yardstick
+   only); each fused site is also checked and timed at a full prefill
+   bucket (4 slots x the cache length);
+3. main path — qwen1.5-4b at its published width (weights from a seed,
+   depth cut to ``--layers``, default 4 of 40) programmed with Design A
+   under 5% state-proportional error and ``fused="kernel"``, calibrated,
+   and serving mixed-length greedy requests through
+   ``ServeRuntime(attn_backend="flash")``; both kernels' launch counts are
+   read from that run; the runtime must equal ``decode_lm`` token for
+   token, and the served logits must agree with the plain-version pack.
+
+The line before the last lists every ported kernel as JSON; the last line
+is ``{"ok": true, "device": {...}}``.  The script exits non-zero, printing
+no result, when there is no CUDA device or no checkout around it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: published peaks of one H100 SXM (dense, NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+SEED = 0
+DEVICE = "cuda"
+MAX_LEN = 32          # the served cache length (and the prefill bucket)
+FUSED_REPLACES = "src/repro/kernels/fused.py:258"      # fused_mvm_pallas
+FLASH_REPLACES = "src/repro/kernels/fused.py:364"      # flash_attention_pallas
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` calls, by CUDA
+    events, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    """Least time for the work: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_fused_grid(torch, ops, tol) -> dict:
+    """The fused kernel against its plain version on the CPU test grid."""
+    worst = {"flips": 0, "max_abs_err": 0.0, "max_ulp": 0.0}
+    for (m, p, s, rows, n, nb, cb) in tol.FUSED_GRID:
+        t = [torch.as_tensor(a, device=DEVICE)
+             for a in tol.fused_case(m, p, s, rows, n)]
+        kw = dict(adc_lo=t[3], adc_hi=t[4], adc_bits=8, cell_bits=cb,
+                  n_bits=nb, scale=torch.tensor(3e-4, device=DEVICE))
+        y = ops.fused_mvm(*t[:3], backend="kernel", **kw)
+        y_ref = ops.fused_mvm(*t[:3], backend="oracle", **kw)
+        torch.cuda.synchronize()
+        r = tol.fused_mvm_check(y, y_ref, *t, kw["scale"], adc_bits=8,
+                                cell_bits=cb, n_bits=nb)
+        if not r["ok"]:
+            raise AssertionError(f"fused_mvm grid case {(m, p, s, rows, n, nb)}"
+                                 f" outside the bound: {r}")
+        worst["flips"] += r["flips"]
+        worst["max_abs_err"] = max(worst["max_abs_err"], r["max_abs_err"])
+        worst["max_ulp"] = max(worst["max_ulp"], r["max_ulp"])
+    return worst
+
+
+def full_width_site(torch, A, E, k: int, n: int, ms, seed: int):
+    """Design-A conductances of a random (k, n) weight and, for each row
+    count in ``ms``, quantized activations with ADC ranges from the plain
+    version's pre-ADC values."""
+    from repro_torch.core.adc import range_from_samples
+    from repro_torch.core.quant import quantize_acts
+    from repro_torch.kernels.ref import fused_pre_adc
+
+    spec = A.design_a(error=E.state_proportional(0.05))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device=DEVICE) * k ** -0.5
+    aw = A.program(w, spec, seed=seed)
+    p, rows = spec.n_partitions(k), spec.rows_per_partition(k)
+    m_ = spec.mapping
+    inputs = []
+    for m in ms:
+        x = torch.randn((m, k), generator=gen, device=DEVICE)
+        xq = quantize_acts(x, spec.input_bits)
+        x_parts = torch.nn.functional.pad(xq.values, (0, p * rows - k)) \
+            .reshape(m, p, rows).contiguous()
+        lo, hi = range_from_samples(
+            fused_pre_adc(x_parts, aw.g_pos, aw.g_neg, None))
+        scale = (m_.levels_per_cell - 1) / (1.0 - m_.g_min) * aw.w_scale \
+            * xq.scale
+        inputs.append((x_parts, lo.reshape(1), hi.reshape(1), scale))
+    return aw.g_pos, aw.g_neg, inputs
+
+
+def fused_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
+                     prefill_m: int) -> dict:
+    """The decode shapes of one qwen1.5-4b step (M = 4 rows), and the same
+    sites at a full prefill bucket (M = ``prefill_m`` rows)."""
+    d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
+    shapes = [("wq", d, cfg.n_heads * cfg.hd, 4 * n_layers),
+              ("w_gate", d, ff, 2 * n_layers),
+              ("w_down", ff, d, n_layers),
+              ("head", d, vocab, 1)]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "max_abs_err": 0.0, "flips": 0, "bytes": 0, "flops": 0}
+
+    def check(name, x, gp, gm, kw):
+        y = ops.fused_mvm(x, gp, gm, backend="kernel", **kw)
+        y_ref = ops.fused_mvm(x, gp, gm, backend="oracle", **kw)
+        torch.cuda.synchronize()
+        r = tol.fused_mvm_check(y, y_ref, x, gp, gm, kw["adc_lo"],
+                                kw["adc_hi"], kw["scale"], adc_bits=8,
+                                cell_bits=7, n_bits=None)
+        if not r["ok"] or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"fused_mvm {name} M={x.shape[0]} outside "
+                                 f"the bound: {r}")
+        return r
+
+    for i, (name, k, n, per_step) in enumerate(shapes):
+        gp, gm, inputs = full_width_site(torch, A, E, k, n, (4, prefill_m),
+                                         SEED + 100 + i)
+        lines = []
+        for j, (x, lo, hi, scale) in enumerate(inputs):
+            kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=7,
+                      n_bits=None, scale=scale)
+            r = check(name, x, gp, gm, kw)
+            ms = cuda_time(lambda: ops.fused_mvm(x, gp, gm, backend="kernel",
+                                                 **kw), reps=10)
+            m, p, rows = x.shape
+            n_bytes = 4 * (x.numel() + gp.numel() + gm.numel() + 3 + m * n)
+            n_flops = 2 * m * p * rows * n + p * rows * n
+            b_ms, b_by = bound_ms(n_bytes, n_flops)
+            tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
+            tot["flips"] += r["flips"]
+            if j:      # the prefill bucket: kernel time against its bound
+                lines.append(f"prefill M={m}: kernel {ms:.4f} ms  bound "
+                             f"{b_ms:.4f} ms ({b_by})  max_abs_err "
+                             f"{r['max_abs_err']:.3e}  flips {r['flips']}")
+                continue
+            plain = cuda_time(lambda: ops.fused_mvm(
+                x, gp, gm, backend="oracle", **kw), reps=3, warmup=1)
+            xp, g0 = x.permute(1, 0, 2).contiguous(), gp[0]
+            lib = cuda_time(lambda: torch.matmul(xp, g0), reps=10)
+            lines.append(f"M={m} P={p} rows={rows} N={n} x{per_step}/step  "
+                         f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+                         f"{b_ms:.4f} ms  torch.matmul(dot only) {lib:.4f} "
+                         f"ms  max_abs_err {r['max_abs_err']:.3e}  flips "
+                         f"{r['flips']}")
+            tot["ms"] += ms * per_step
+            tot["plain_ms"] += plain * per_step
+            tot["bytes"] += n_bytes * per_step
+            tot["flops"] += n_flops * per_step
+            tot["library_ms"] += lib * per_step
+        print(f"fused_mvm {name}: " + "; ".join(lines), flush=True)
+        del gp, gm, inputs
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["flops"])
+    return tot
+
+
+def flash_case(torch, tol, b, s, kv, g, hd, dtype, seed=None):
+    """A flash-decode case on the card, K and V in ``dtype``."""
+    q, k, v, fills = (torch.as_tensor(a, device=DEVICE)
+                      for a in tol.flash_case(b, s, kv, g, hd, seed))
+    return q, k.to(dtype), v.to(dtype), fills
+
+
+def flash_checks(torch, ops, tol, cfg, n_layers: int, max_len: int,
+                 cache_dtype) -> dict:
+    worst = 0.0
+    for (b, s, kv, g, hd) in tol.FLASH_GRID:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, fills = flash_case(torch, tol, b, s, kv, g, hd, dt)
+            out = ops.flash_attention_decode(q, k, v, fills, backend="kernel")
+            ref = ops.flash_attention_decode(q, k, v, fills, backend="oracle")
+            r = tol.flash_decode_check(out, ref, v, fills)
+            if not r["ok"]:
+                raise AssertionError(f"flash grid case {(b, s, kv, g, hd, dt)}"
+                                     f" outside the bound: {r}")
+            worst = max(worst, r["max_abs_err"])
+
+    b, h, kv, hd = 4, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v, fills = flash_case(torch, tol, b, max_len, kv, h // kv, hd,
+                                cache_dtype, SEED + 50)
+    out = ops.flash_attention_decode(q, k, v, fills, backend="kernel")
+    ref = ops.flash_attention_decode(q, k, v, fills, backend="oracle")
+    r = tol.flash_decode_check(out, ref, v, fills)
+    if not r["ok"] or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"flash_decode at the decode shape: {r}")
+    ms = cuda_time(lambda: ops.flash_attention_decode(
+        q, k, v, fills, backend="kernel"), reps=50)
+    plain = cuda_time(lambda: ops.flash_attention_decode(
+        q, k, v, fills, backend="oracle"), reps=20)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q[:, :, None, :]
+    ks = k.float().permute(0, 2, 1, 3).contiguous()
+    vs = v.float().permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(max_len, device=DEVICE)[None, :]
+            < fills[:, None])[:, None, None, :]
+    lib = cuda_time(lambda: sdpa(qs, ks, vs, attn_mask=mask), reps=50)
+    valid = int(fills.sum())
+    elem = k.element_size()
+    n_bytes = 4 * q.numel() + 2 * valid * kv * hd * elem + 4 * b + 4 * q.numel()
+    n_flops = valid * h * (4 * hd + 4)
+    b_ms, _ = bound_ms(n_bytes, n_flops)
+    step_bound = bound_ms(n_bytes * n_layers, n_flops * n_layers)
+    print(f"flash_decode B={b} H={h} KV={kv} hd={hd} S={max_len} "
+          f"{str(cache_dtype).split('.')[-1]} fills={fills.tolist()} "
+          f"x{n_layers}/step  kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+          f"{b_ms:.5f} ms  sdpa {lib:.4f} ms  max_abs_err "
+          f"{max(worst, r['max_abs_err']):.3e}", flush=True)
+    return {"ms": ms * n_layers, "plain_ms": plain * n_layers,
+            "bound_ms": step_bound[0], "bound_by": step_bound[1],
+            "library_ms": lib * n_layers,
+            "max_abs_err": max(worst, r["max_abs_err"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+
+def with_fused(pack, mode: str):
+    """The same programmed pack with every spec's ``fused`` set to
+    ``mode`` (``"oracle"`` routes each site through the plain version)."""
+    from repro_torch.hw.profile import SiteSpecs
+
+    def swap(spec):
+        return dataclasses.replace(spec, fused=mode)
+
+    bands = tuple(SiteSpecs(tuple((n, swap(s)) for n, s in ss.items))
+                  for ss in pack.band_specs)
+    head = None if pack.head_spec is None else swap(pack.head_spec)
+    return dataclasses.replace(pack, band_specs=bands, head_spec=head)
+
+
+def near_tie(torch, cfg, params, pack, prompt, ref, got,
+             rel: float = 1e-4) -> bool:
+    """True if ``got`` leaves ``ref`` only where the reference's top-2
+    logit gap at the first diverging step is under ``rel`` of the logit
+    scale (the near-tie rule)."""
+    from repro_torch.models.transformer import forward
+
+    diff = [i for i, (a, b) in enumerate(zip(ref, got)) if a != b]
+    if not diff:
+        return True
+    i = diff[0]
+    seq = torch.as_tensor(list(prompt) + list(ref[:i]), device=DEVICE)[None]
+    logits = forward(cfg, params, seq, pack=pack)[0][0, -1]
+    top2 = torch.topk(logits, 2).values
+    return float(top2[0] - top2[1]) < rel * float(logits.abs().max())
+
+
+def main_path(torch, args, kern_fused):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (ServeRuntime, calibrate_lm, decode_lm,
+                                   program_lm)
+
+    base = get_config("qwen1.5-4b")
+    cfg = dataclasses.replace(base, n_layers=args.layers)
+    print(f"main path: {cfg.name} at published width d={cfg.d_model} "
+          f"H={cfg.n_heads} KV={cfg.n_kv_heads} hd={cfg.hd} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} dtype={cfg.dtype}; depth cut "
+          f"to {cfg.n_layers} of {base.n_layers} layers; weights from seed "
+          f"{SEED}", flush=True)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, SEED, device=DEVICE)
+    spec = A.design_a(error=E.state_proportional(0.05), fused="kernel")
+    pack = program_lm(cfg, params, spec, seed=7)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    calib = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=DEVICE)
+    pack = calibrate_lm(cfg, params, pack, calib)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"programmed {len(pack.layer_weights)} sites x {cfg.n_layers} "
+          f"layers + head in {t1 - t0:.2f} s; calibrated on 4x32 tokens in "
+          f"{t2 - t1:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    rng = np.random.default_rng(SEED + 2)
+    reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), m)
+            for n, m in ((5, 8), (11, 6), (17, 8), (24, 7), (3, 5))]
+    max_len = MAX_LEN
+
+    def serve(backend):
+        rt = ServeRuntime(cfg, params, pack=pack, max_slots=4,
+                          max_len=max_len, attn_backend=backend)
+        uids = [rt.submit(p, max_new_tokens=m) for p, m in reqs]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = rt.run()
+        torch.cuda.synchronize()
+        return [outs[u] for u in uids], time.perf_counter() - t, rt.stats
+
+    kern_fused.reset_launch_counts()
+    flash_out, wall, stats = serve("flash")
+    counts = dict(kern_fused.LAUNCHES)
+    steps = stats["decode_steps"]
+    print(f"served {len(reqs)} requests ({stats['tokens_out']} tokens, "
+          f"{stats['prefill_calls']} prefills, {steps} decode steps) through "
+          f"ServeRuntime(attn_backend='flash') in {wall:.3f} s; launches "
+          f"fused_mvm={counts['fused_mvm']} flash_decode="
+          f"{counts['flash_decode']} (per decode step expected "
+          f"{7 * cfg.n_layers + 1} fused_mvm, {cfg.n_layers} flash_decode; "
+          f"got {counts['flash_decode'] / max(steps, 1):.1f} flash_decode)",
+          flush=True)
+    if counts["fused_mvm"] == 0 or counts["flash_decode"] == 0:
+        raise AssertionError(f"a kernel of the main path never ran: {counts}")
+    if counts["flash_decode"] != cfg.n_layers * steps:
+        raise AssertionError("flash_decode launches != layers x steps")
+    for (p, m), out in zip(reqs, flash_out):
+        if out.shape != (m,) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"bad completion {out} for budget {m}")
+
+    stream_out, _, _ = serve("stream")
+    agree = total = 0
+    ties = 0
+    for (p, m), s_out, f_out in zip(reqs, stream_out, flash_out):
+        ref = decode_lm(cfg, params, torch.as_tensor(p)[None], m,
+                        pack=pack)[0].cpu().numpy()
+        agree += int((s_out == ref).sum())
+        total += m
+        if (f_out != ref).any():
+            if not near_tie(torch, cfg, params, pack, p, ref, f_out):
+                raise AssertionError(f"flash runtime left decode_lm away from "
+                                     f"a near tie: {f_out} vs {ref}")
+            ties += 1
+    print(f"runtime(stream) == decode_lm agreement {agree / total:.4f} "
+          f"({agree}/{total}); runtime(flash) vs decode_lm: "
+          f"{len(reqs) - ties}/{len(reqs)} requests identical, {ties} "
+          f"near-tie departures", flush=True)
+    if agree != total:
+        raise AssertionError("ServeRuntime != decode_lm")
+
+    # the served logits against the plain-version pack, on a short prompt
+    prompt = torch.as_tensor(reqs[1][0], device=DEVICE)[None]
+    lg_k = T.forward(cfg, params, prompt, pack=pack)[0]
+    lg_o = T.forward(cfg, params, prompt, pack=with_fused(pack, "oracle"))[0]
+    scale = float(lg_o.abs().max())
+    dev = float((lg_k - lg_o).abs().max()) / scale
+    print(f"logits kernel pack vs plain-version pack: max |diff| / max|logit|"
+          f" = {dev:.3e} (finite: {bool(torch.isfinite(lg_k).all())})",
+          flush=True)
+    if not bool(torch.isfinite(lg_k).all()) or dev > 1e-3:
+        raise AssertionError("served logits disagree with the plain version")
+
+    # decode-step time: 4 rows decoding together through the flash path
+    prompts = torch.as_tensor(np.stack([r[0][:3] for r in reqs[:4]]),
+                              device=DEVICE)
+    logits, cache = T.prefill(cfg, params, prompts, max_len, pack=pack)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = T.decode_step(cfg, params, tok, cache, pack=pack,
+                                      attn_backend="flash")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step = sorted(times[2:])[len(times[2:]) // 2]
+    return cfg, step, counts
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=4,
+                    help="depth of qwen1.5-4b to serve (1..40, default 4)")
+    args = ap.parse_args()
+    if not 1 <= args.layers <= 40:
+        ap.error("--layers takes 1..40")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (sets the TF32 switches)
+    from repro_torch.configs import get_config
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.kernels import build, ops, tolerance as tol
+    from repro_torch.kernels import fused as kern_fused
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t = time.perf_counter()
+    build.build_all()
+    print(f"built {', '.join(build.SOURCES)} for sm_90a in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    for name, report in build.PTXAS_REPORT.items():
+        regs = [ln.strip() for ln in report.splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
+        print(f"ptxas {name}: " + " | ".join(regs), flush=True)
+
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=args.layers)
+    grid = check_fused_grid(torch, ops, tol)
+    print(f"fused_mvm CPU test grid on the card: {len(tol.FUSED_GRID)} "
+          f"cases within the bound, {grid['flips']} one-code flips, max ulp "
+          f"{grid['max_ulp']:.1f}", flush=True)
+    fm = fused_full_width(torch, A, E, ops, tol, cfg, args.layers,
+                          prefill_m=4 * MAX_LEN)
+    cache_dtype = getattr(torch, cfg.dtype)
+    fl = flash_checks(torch, ops, tol, cfg, args.layers, MAX_LEN,
+                      cache_dtype)
+
+    cfg, step_s, counts = main_path(torch, args, kern_fused)
+    print(f"decode step (4 rows, {cfg.n_layers} layers, flash attention): "
+          f"{step_s * 1e3:.3f} ms, {4 / step_s:.1f} tokens/s on {card}",
+          flush=True)
+
+    kernels = [
+        {"name": "fused_mvm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_mvm.cu",
+         "replaces": FUSED_REPLACES, "launches": counts["fused_mvm"],
+         "max_abs_err": max(fm["max_abs_err"], grid["max_abs_err"]),
+         "ms": fm["ms"], "plain_ms": fm["plain_ms"],
+         "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
+         "library_ms": fm["library_ms"]},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": FLASH_REPLACES, "launches": counts["flash_decode"],
+         "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
+         "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
+         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
+    ]
+    print(f"card: {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

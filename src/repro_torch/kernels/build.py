@@ -1,0 +1,98 @@
+"""Build the CUDA kernels in ``csrc/`` at first use and bind them with
+``ctypes``.
+
+Each source compiles on its own into a shared library with a plain C
+interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so \\
+         src/repro_torch/kernels/csrc/<name>.cu
+
+into ``build/repro_torch/`` at the root of the checkout (``.gitignore``
+lists ``build/``).  Libraries are named by a hash of their source and
+flags, so an edited source rebuilds and an unchanged one loads as built.
+:func:`build_all` starts one ``nvcc`` per missing library, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("fused_mvm", "flash_decode")
+
+#: ptxas register/shared-memory report of each library built in this
+#: process (``-Xptxas -v`` output), by source name
+PTXAS_REPORT: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, then
+    ``/usr/local/cuda/bin/nvcc``, then ``nvcc`` on ``PATH``."""
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the repro_torch kernels build "
+            "only where the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> float:
+    """Compile every library in ``names`` (default: all) that is not built
+    yet, one ``nvcc`` per source in parallel; returns the seconds spent."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not library_path(n).is_file()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    jobs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        PTXAS_REPORT[name] = (stdout + stderr).strip()
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library ``name``, compiling it first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

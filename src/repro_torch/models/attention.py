@@ -1,0 +1,124 @@
+"""Attention block: GQA/MQA, RoPE, optional QKV bias / per-head qk-norm /
+sliding window, prefill and dense-cache decode (counterpart of
+``repro.models.attention``).
+
+Decode writes the new token's K/V into the cache **in place** (the
+reference builds a new array with ``.at[].set``): the callers never read
+the old cache again, and the slot cache of a server is the largest
+activation-side buffer there is.  The paged branch of the reference
+waits for ROADMAP queue A item 7.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.layers import (AnalogCtx, dense, rms_norm, rope,
+                                       streaming_attention)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+                   device) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device)
+
+    sc = d ** -0.5
+    p = {
+        "wq": normal(n_layers, d, h * hd) * sc,
+        "wk": normal(n_layers, d, kv * hd) * sc,
+        "wv": normal(n_layers, d, kv * hd) * sc,
+        "wo": normal(n_layers, h * hd, d) * (h * hd) ** -0.5,
+    }
+    zeros = dict(dtype=torch.float32, device=device)
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((n_layers, h * hd), **zeros)
+        p["bk"] = torch.zeros((n_layers, kv * hd), **zeros)
+        p["bv"] = torch.zeros((n_layers, kv * hd), **zeros)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((n_layers, hd), **zeros)
+        p["k_norm"] = torch.zeros((n_layers, hd), **zeros)
+    return p
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """Write ``new`` (B, s, KV, hd) at per-row positions ``pos`` (B, s) of
+    ``cache`` (B, S_max, KV, hd), in place.  Positions past the end are
+    dropped, like the reference's scatter."""
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    inside = pos < cache.shape[1]
+    pos_c = torch.clamp(pos, max=cache.shape[1] - 1)
+    keep = cache[rows, pos_c]
+    cache[rows, pos_c] = torch.where(inside[..., None, None],
+                                     new.to(cache.dtype), keep)
+
+
+def attention_block(
+    p: dict,                       # per-layer slice (no leading L axis)
+    x: torch.Tensor,               # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,       # (S,) or (B, S) absolute positions
+    window,                        # None or a per-layer window
+    cache: Optional[dict] = None,  # {"k","v"}: (B, S_max, KV, hd)
+    cache_len=None,                # current fill: 0-d or (B,) tensor
+    causal: bool = True,
+    ctx: Optional[AnalogCtx] = None,
+    aux: Optional[dict] = None,
+    attn_backend: str = "stream",  # dense decode: stream | flash | flash_oracle
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    q = dense(x, p["wq"], "wq", ctx, aux, bias=p.get("bq"))
+    k = dense(x, p["wk"], "wk", ctx, aux, bias=p.get("bk"))
+    v = dense(x, p["wv"], "wv", ctx, aux, bias=p.get("bv"))
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"].to(q.dtype))
+        k = rms_norm(k, p["k_norm"].to(k.dtype))
+
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = streaming_attention(q, k, v, q_offset=0, causal=causal,
+                                  window=window)
+        new_cache = {"k": k, "v": v}
+    else:
+        # decode: insert the new token(s) at each row's fill, attend over
+        # the cache
+        fill = torch.as_tensor(cache_len, device=x.device)
+        pos = (fill.reshape(-1, 1).expand(b, 1)
+               + torch.arange(s, device=x.device)[None, :])
+        ck, cv = cache["k"], cache["v"]
+        _write_cache(ck, k, pos)
+        _write_cache(cv, v, pos)
+        if attn_backend != "stream":
+            # flash-decode kernel over the dense per-slot cache; no
+            # sliding-window mask (decode_step rejects windowed configs)
+            if s != 1:
+                raise ValueError("flash attention is a decode path "
+                                 "(S == 1); prefill uses streaming")
+            from repro_torch.kernels.ops import flash_attention_decode
+
+            fills = (fill + s).to(torch.int32).reshape(-1).expand(b)
+            be = "oracle" if attn_backend == "flash_oracle" else "kernel"
+            out = flash_attention_decode(q[:, 0], ck, cv, fills,
+                                         backend=be)[:, None]
+        else:
+            out = streaming_attention(q, ck, cv, q_offset=fill, causal=causal,
+                                      window=window, kv_len=fill + s)
+        new_cache = {"k": ck, "v": cv}
+
+    out = out.reshape(b, s, h * hd)
+    return dense(out, p["wo"], "wo", ctx, aux), new_cache

@@ -1,0 +1,48 @@
+"""Model registry (counterpart of ``repro.models.registry``): family ->
+entry points.  Only the dense family is ported; the others raise and are
+ROADMAP queue A item 10."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    init_params: Callable
+    forward: Callable          # (cfg, params, tokens, **kw) -> (logits, aux)
+    prefill: Callable          # (cfg, params, tokens, max_len, **kw)
+    decode_step: Callable      # (cfg, params, token, cache, **kw)
+    init_cache: Callable       # (cfg, batch, max_len, *, device)
+    decode_loop: Optional[Callable] = None
+    prefill_ragged: Optional[Callable] = None
+    cache_slot_insert: Optional[Callable] = None
+    cache_slot_evict: Optional[Callable] = None
+
+
+_TRANSFORMER = ModelApi(
+    init_params=transformer.init_params,
+    forward=transformer.forward,
+    prefill=transformer.prefill,
+    decode_step=transformer.decode_step,
+    init_cache=transformer.init_cache,
+    decode_loop=transformer.greedy_decode,
+    prefill_ragged=transformer.prefill_ragged,
+    cache_slot_insert=transformer.cache_slot_insert,
+    cache_slot_evict=transformer.cache_slot_evict,
+)
+
+_BY_FAMILY = {"dense": _TRANSFORMER}
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    api = _BY_FAMILY.get(cfg.family)
+    if api is None or cfg.rwkv or cfg.n_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
+            f"port serves {sorted(_BY_FAMILY)} (ROADMAP queue A item 10)")
+    return api

@@ -1,0 +1,40 @@
+"""Serve an LM through the analog pipeline (counterpart of
+``repro.serve``): program + calibrate (``analog_engine``), one-shot
+batched decode (``decode_lm``) and the continuous-batching runtime
+(``runtime``)."""
+
+from repro_torch.serve.analog_engine import (
+    analog_eval_metrics,
+    calibrate_lm,
+    decode_lm,
+    hook_key,
+    lm_hook_names,
+    lm_program_codes,
+    program_lm,
+    program_lm_from_codes,
+)
+from repro_torch.serve.runtime import (
+    Completion,
+    SamplerConfig,
+    ServeRuntime,
+    SlotState,
+    request_key,
+    sample_tokens,
+)
+
+__all__ = [
+    "analog_eval_metrics",
+    "calibrate_lm",
+    "decode_lm",
+    "hook_key",
+    "lm_hook_names",
+    "lm_program_codes",
+    "program_lm",
+    "program_lm_from_codes",
+    "Completion",
+    "SamplerConfig",
+    "ServeRuntime",
+    "SlotState",
+    "request_key",
+    "sample_tokens",
+]

@@ -13,6 +13,10 @@ def pytest_configure(config):
         "tier2: expensive end-to-end differential tests "
         "(nightly CI; set RUN_TIER2=1 to run locally)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (repro_torch's kernels); skips without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
