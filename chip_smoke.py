@@ -7,33 +7,55 @@ Run from the root of a checkout on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA.  Phases, each printing its own
 lines:
 
-1. card and build — the card's name and power limit (nvidia-smi), then the
-   two CUDA kernels built from ``src/repro_torch/kernels/csrc`` for sm_90a;
+1. card and build — the card's name and power limit (nvidia-smi), then
+   every CUDA source of ``src/repro_torch/kernels/csrc`` built for sm_90a,
+   one nvcc each, all at once, with ptxas's register report;
 2. kernel vs plain — each kernel against its plain PyTorch version on the
-   card, on the CPU test grids (``tolerance.FUSED_GRID``/``FLASH_GRID``)
-   and at qwen1.5-4b's full-width decode shapes, held to the bounds of
+   card, on the CPU test grids (``tolerance.*_GRID``) and at qwen1.5-4b's
+   full-width decode shapes, held to the bounds of
    ``repro_torch.kernels.tolerance``, with the kernel's time, the plain
    version's, the least time the card could take (bound) and one PyTorch
    library call computing the same function or its dot part (yardstick
-   only); each fused site is also checked and timed at a full prefill
-   bucket (4 slots x the cache length);
+   only; no PyTorch call solves a bit line, so the parasitic kernels have
+   none); each fused site is also checked and timed at a full prefill
+   bucket (4 slots x the cache length); the bit-line kernel, which runs
+   only in calibration, is held in phase 5 at the shapes that gives it;
 3. main path — qwen1.5-4b at its published width (weights from a seed,
    depth cut to ``--layers``, default 4 of 40) programmed with Design A
    under 5% state-proportional error and ``fused="kernel"``, calibrated,
    and serving mixed-length greedy requests through
    ``ServeRuntime(attn_backend="flash")``; both kernels' launch counts are
    read from that run; the runtime must equal ``decode_lm`` token for
-   token, and the served logits must agree with the plain-version pack.
+   token, and the served logits must agree with the plain-version pack;
+4. path P1 — the same programmed conductances (programming does not depend
+   on the parasitic level) under bit-line parasitics, ``r_hat`` 1e-4 (the
+   middle of the paper's Fig. 19 axis), ``fused="kernel"``: recalibrated
+   and serving the same requests; the fused parasitic kernel's launches are
+   read from that run, the runtime must equal ``decode_lm``, the served
+   logits must agree with the plain-version pack, and the decode step is
+   timed;
+5. path P2 — the legacy ``use_pallas=True, fused="off"`` route on the same
+   conductances, at ``r_hat`` 1e-4 (the bit-line kernel in calibration,
+   the legacy parasitic kernel in serving) and at ``r_hat`` 0 (the legacy
+   Design-A kernel), each recalibrated and serving three requests that
+   must equal ``decode_lm``; one prefill's logits must agree with the same
+   pack on the legacy kernels' plain versions, and the bit-line kernel is
+   held against its plain version, and timed, on one call of each shape
+   the calibration gave it (its times summed over one calibration).
 
-The line before the last lists every ported kernel as JSON; the last line
-is ``{"ok": true, "device": {...}}``.  The script exits non-zero, printing
-no result, when there is no CUDA device or no checkout around it.
+Each path sets every launch count to 0 just before it and reads them just
+after.  The line before the last lists every ported kernel as JSON; the
+last line is ``{"ok": true, "device": {...}}``.  The script exits non-zero,
+printing no result, when there is no CUDA device or no checkout around
+it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -45,12 +67,27 @@ ROOT = Path(__file__).resolve().parent
 #: published peaks of one H100 SXM (dense, NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+#: fp32 operations a bound counts for one IEEE division (``__fdiv_rn``):
+#: not one flop but a reciprocal on the special-function unit refined by
+#: fused multiply-adds on the fp32 pipe.  The SFU issues 16 reciprocals per
+#: clock per SM against 128 fp32 lanes, so a division's reciprocal alone
+#: holds the issue time of 8 lanes' FMAs, 16 flops at the 67 TFLOP/s rate;
+#: the refinement's FMAs, which run beside it on the fp32 pipe, are not
+#: counted, so the bound stays a lower one.
+DIV_FLOPS = 16
 
 SEED = 0
 DEVICE = "cuda"
 MAX_LEN = 32          # the served cache length (and the prefill bucket)
 FUSED_REPLACES = "src/repro/kernels/fused.py:258"      # fused_mvm_pallas
 FLASH_REPLACES = "src/repro/kernels/fused.py:364"      # flash_attention_pallas
+# fused_mvm_parasitic_pallas, bitline_mvm_pallas, analog_bitline_diff_pallas,
+# analog_mvm_diff_pallas
+PARASITIC_REPLACES = "src/repro/kernels/fused.py:282"
+BITLINE_REPLACES = "src/repro/kernels/bitline.py:90"
+BL_DIFF_REPLACES = "src/repro/kernels/bitline.py:159"
+MVM_DIFF_REPLACES = "src/repro/kernels/analog_mvm.py:123"
+R_HAT = 1e-4          # the middle of the paper's Fig. 19 axis
 
 
 def card_line() -> str:
@@ -262,18 +299,241 @@ def flash_checks(torch, ops, tol, cfg, n_layers: int, max_len: int,
             "max_abs_err": max(worst, r["max_abs_err"])}
 
 
+def check_parasitic_grids(torch, ops, tol) -> dict:
+    """The four parasitic/legacy kernels against their plain versions on the
+    CPU test grids; returns each kernel's largest error."""
+    worst = {"fused_mvm_parasitic": 0.0, "bitline_mvm": 0.0,
+             "analog_bitline_diff": 0.0, "analog_mvm_diff": 0.0}
+
+    def hold(name, case, r):
+        if not r["ok"]:
+            raise AssertionError(f"{name} grid case {case} outside the "
+                                 f"bound: {r}")
+        worst[name] = max(worst[name], r["max_abs_err"])
+
+    def on(*arrays):
+        return [torch.as_tensor(a, device=DEVICE) for a in arrays]
+
+    for case in tol.FUSED_PARASITIC_GRID:
+        m, p, s, rows, n, r_hat = case
+        x, gp, gm, lo, hi = on(*tol.fused_parasitic_case(m, p, s, rows, n))
+        kw = dict(r_hat=r_hat, adc_lo=lo, adc_hi=hi, adc_bits=8,
+                  cell_bits=2 if s > 1 else 7, n_bits=7,
+                  scale=torch.tensor(3e-4, device=DEVICE))
+        y = ops.fused_mvm_parasitic(x, gp, gm, **kw)
+        y_ref = ops.fused_mvm_parasitic(x, gp, gm, backend="oracle", **kw)
+        hold("fused_mvm_parasitic", case, tol.fused_mvm_parasitic_check(
+            y, y_ref, x, gp, gm, r_hat, lo, hi, kw["scale"], adc_bits=8,
+            cell_bits=kw["cell_bits"], n_bits=7))
+    for case in tol.BITLINE_GRID:
+        m, k, n, r_hat = case
+        x, g = on(*tol.bitline_case(m, k, n))
+        hold("bitline_mvm", case, tol.bitline_check(
+            ops.bitline_mvm(g, x, r_hat),
+            ops.bitline_mvm(g, x, r_hat, backend="oracle")))
+    lo, hi = (torch.tensor(v, device=DEVICE) for v in tol.LEGACY_RANGE)
+    for case in tol.LEGACY_PARASITIC_GRID:
+        x, gp, gm = on(*tol.legacy_case(*case))
+        kw = dict(r_hat=1e-3, n_bits=7, adc_lo=lo, adc_hi=hi, adc_bits=8,
+                  gain=tol.LEGACY_GAIN)
+        hold("analog_bitline_diff", case, tol.analog_mvm_check(
+            ops.analog_mvm_parasitic(x, gp, gm, **kw),
+            ops.analog_mvm_parasitic(x, gp, gm, backend="oracle", **kw),
+            x, gp, gm, lo, hi, tol.LEGACY_GAIN, adc_bits=8, r_hat=1e-3,
+            n_bits=7))
+    for case in tol.LEGACY_GRID:
+        m, p, rows, n, adc_bits = case
+        x, gp, gm = on(*tol.legacy_case(m, p, rows, n, seed=m * 7 + p))
+        kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=adc_bits,
+                  gain=tol.LEGACY_GAIN)
+        hold("analog_mvm_diff", case, tol.analog_mvm_check(
+            ops.analog_mvm(x, gp, gm, **kw),
+            ops.analog_mvm(x, gp, gm, backend="oracle", **kw),
+            x, gp, gm, lo, hi, tol.LEGACY_GAIN, adc_bits=adc_bits))
+    torch.cuda.synchronize()
+    return worst
+
+
+def sweep_ops(systems: int, rows: int):
+    """fp32 operations of ``systems`` Thomas sweeps of ``rows`` rows: per
+    row two exact products, three adds, one g * r product and two
+    divisions; per system the final division by r."""
+    return systems * (rows * (6 + 2 * DIV_FLOPS) + DIV_FLOPS)
+
+
+def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int) -> dict:
+    """The three serving kernels of paths P1 and P2 at the sites of one
+    qwen1.5-4b decode step (M = 4 token rows, Design A): each against its
+    plain version, with its time, the plain version's, its bound and, for
+    the legacy Design-A kernel, the dot as one torch.matmul.  Times are
+    summed over a step's sites (wq's shape 4 per layer, w_gate's 2,
+    w_down's 1, the head once).  The bit-line kernel runs only in path P2's
+    calibration and is held there, at the shapes that gives it
+    (:func:`bitline_at_calibration`)."""
+    from repro_torch.core.adc import range_from_samples
+    from repro_torch.kernels.ref import fused_pre_adc, parasitic_pre_adc
+
+    d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
+    shapes = [("wq", d, cfg.n_heads * cfg.hd, 4 * n_layers),
+              ("w_gate", d, ff, 2 * n_layers),
+              ("w_down", ff, d, n_layers),
+              ("head", d, vocab, 1)]
+    names = ("fused_mvm_parasitic", "analog_bitline_diff", "analog_mvm_diff")
+    tot = {nm: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+                "max_abs_err": 0.0, "flips": 0, "library_ms": None}
+           for nm in names}
+    tot["analog_mvm_diff"]["library_ms"] = 0.0
+    spec = A.design_a(error=E.state_proportional(0.05))
+    m_ = spec.mapping
+    gain = (m_.levels_per_cell - 1) / (1.0 - m_.g_min)
+    nb = spec.n_planes
+    m = 4
+    for i, (site, k, n, per_step) in enumerate(shapes):
+        gp, gm, inputs = full_width_site(torch, A, E, k, n, (m,),
+                                         SEED + 200 + i)
+        x, lo_lin, hi_lin, scale = inputs[0]
+        p, rows = x.shape[1], x.shape[2]
+        lo_par, hi_par = (t.reshape(1) for t in range_from_samples(
+            parasitic_pre_adc(x, gp, gm, R_HAT, nb)))
+        x_bytes = 4 * x.numel()
+        g_bytes = 4 * (gp.numel() + gm.numel())
+        calls = {
+            "fused_mvm_parasitic": (
+                lambda b: ops.fused_mvm_parasitic(
+                    x, gp, gm, r_hat=R_HAT, adc_lo=lo_par, adc_hi=hi_par,
+                    adc_bits=8, cell_bits=7, n_bits=nb, scale=scale,
+                    backend=b),
+                lambda y, yr: tol.fused_mvm_parasitic_check(
+                    y, yr, x, gp, gm, R_HAT, lo_par, hi_par, scale,
+                    adc_bits=8, cell_bits=7, n_bits=nb),
+                x_bytes + g_bytes + 4 * m * n,
+                sweep_ops(2 * nb * m * p * n, rows) + 3 * nb * m * p * n),
+            "analog_bitline_diff": (
+                lambda b: ops.analog_mvm_parasitic(
+                    x, gp, gm, r_hat=R_HAT, n_bits=nb, adc_lo=lo_par,
+                    adc_hi=hi_par, adc_bits=8, gain=gain, backend=b),
+                lambda y, yr: tol.analog_mvm_check(
+                    y, yr, x, gp[0], gm[0], lo_par, hi_par, gain,
+                    adc_bits=8, r_hat=R_HAT, n_bits=nb),
+                x_bytes + g_bytes + 4 * m * n,
+                sweep_ops(2 * nb * m * p * n, rows) + 3 * nb * m * p * n),
+            "analog_mvm_diff": (
+                lambda b: ops.analog_mvm(
+                    x, gp, gm, adc_lo=lo_lin, adc_hi=hi_lin, adc_bits=8,
+                    gain=gain, backend=b),
+                lambda y, yr: tol.analog_mvm_check(
+                    y, yr, x, gp[0], gm[0], lo_lin, hi_lin, gain,
+                    adc_bits=8),
+                x_bytes + g_bytes + 4 * m * n,
+                2 * m * p * rows * n + p * rows * n),
+        }
+        lines = []
+        for nm, (call, check, n_bytes, n_flops) in calls.items():
+            y = call("kernel")
+            y_ref = call("oracle")
+            torch.cuda.synchronize()
+            r = check(y, y_ref)
+            if not r["ok"] or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{nm} at {site} outside the bound: {r}")
+            ms = cuda_time(lambda: call("kernel"), reps=5, warmup=1)
+            t0 = time.perf_counter()
+            call("oracle")
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t0) * 1e3
+            b_ms, b_by = bound_ms(n_bytes, n_flops)
+            t = tot[nm]
+            t["max_abs_err"] = max(t["max_abs_err"], r["max_abs_err"])
+            t["flips"] += r.get("flips", 0)
+            t["ms"] += ms * per_step
+            t["plain_ms"] += plain * per_step
+            t["bytes"] += n_bytes * per_step
+            t["flops"] += n_flops * per_step
+            lib = "  library: none (no PyTorch call solves a bit line)"
+            if nm == "analog_mvm_diff":
+                xpart, gd = x.permute(1, 0, 2).contiguous(), gp[0] - gm[0]
+                lib_ms = cuda_time(lambda: torch.matmul(xpart, gd), reps=10)
+                t["library_ms"] += lib_ms * per_step
+                lib = f"  torch.matmul(dot only) {lib_ms:.4f} ms"
+            lines.append(f"{nm} kernel {ms:.4f} ms  plain {plain:.1f} ms  "
+                         f"bound {b_ms:.4f} ms ({b_by}){lib}  max_abs_err "
+                         f"{r['max_abs_err']:.3e}")
+        print(f"parasitic/legacy {site} (M={m} P={p} rows={rows} N={n} "
+              f"x{per_step}/step): " + "; ".join(lines), flush=True)
+        del gp, gm, inputs
+        torch.cuda.empty_cache()
+    for t in tot.values():
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+    return tot
+
+
+def bitline_at_calibration(torch, ops, tol, seen: dict, r_hat) -> dict:
+    """The bit-line kernel against its plain version on the inputs path P2's
+    calibration gave it: ``seen`` maps each (arrays, plane rows) shape to
+    its first call's operands and the calibration's launches at that shape.
+    Each is checked once, timed, and its times and bound are summed over
+    those launches (one calibration)."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+           "max_abs_err": 0.0, "library_ms": None}
+    for (g, x, n_calls) in seen.values():
+        y = ops.bitline_mvm(g, x, r_hat)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_ref = ops.bitline_mvm(g, x, r_hat, backend="oracle")
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        r = tol.bitline_check(y, y_ref)
+        finite = bool(torch.isfinite(y).all())
+        del y, y_ref
+        n_g, k, n = g.shape
+        m = x.shape[1]
+        if not r["ok"] or not finite:
+            raise AssertionError(f"bitline_mvm at g {tuple(g.shape)}, x "
+                                 f"{tuple(x.shape)} outside the bound: {r}")
+        ms = cuda_time(lambda: ops.bitline_mvm(g, x, r_hat), reps=3,
+                       warmup=1)
+        n_bytes = 4 * (x.numel() + g.numel() + n_g * m * n)
+        n_flops = sweep_ops(n_g * m * n, k)
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        print(f"bitline_mvm at calibration: g {tuple(g.shape)} x "
+              f"{tuple(x.shape)} x{n_calls}/calibration  kernel {ms:.4f} ms  "
+              f"plain {plain:.1f} ms  bound {b_ms:.4f} ms ({b_by})  library: "
+              f"none (no PyTorch call solves a bit line)  max_abs_err "
+              f"{r['max_abs_err']:.3e}", flush=True)
+        tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
+        tot["ms"] += ms * n_calls
+        tot["plain_ms"] += plain * n_calls
+        tot["bytes"] += n_bytes * n_calls
+        tot["flops"] += n_flops * n_calls
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["flops"])
+    return tot
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
 
-def with_fused(pack, mode: str):
-    """The same programmed pack with every spec's ``fused`` set to
-    ``mode`` (``"oracle"`` routes each site through the plain version)."""
+@contextlib.contextmanager
+def swapped(module, **attrs):
+    """``module``'s attributes replaced by ``attrs`` inside the block."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def with_spec(pack, **fields):
+    """The same programmed pack with ``fields`` replaced in every spec
+    (``fused="oracle"`` routes each site through the plain version;
+    ``r_hat`` and ``use_pallas`` pick a path over the same conductances)."""
     from repro_torch.hw.profile import SiteSpecs
 
     def swap(spec):
-        return dataclasses.replace(spec, fused=mode)
+        return dataclasses.replace(spec, **fields)
 
     bands = tuple(SiteSpecs(tuple((n, swap(s)) for n, s in ss.items))
                   for ss in pack.band_specs)
@@ -305,8 +565,7 @@ def main_path(torch, args, kern_fused):
     from repro_torch.core import analog as A
     from repro_torch.core import errors as E
     from repro_torch.models import transformer as T
-    from repro_torch.serve import (ServeRuntime, calibrate_lm, decode_lm,
-                                   program_lm)
+    from repro_torch.serve import calibrate_lm, program_lm
 
     base = get_config("qwen1.5-4b")
     cfg = dataclasses.replace(base, n_layers=args.layers)
@@ -334,17 +593,9 @@ def main_path(torch, args, kern_fused):
     rng = np.random.default_rng(SEED + 2)
     reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), m)
             for n, m in ((5, 8), (11, 6), (17, 8), (24, 7), (3, 5))]
-    max_len = MAX_LEN
 
     def serve(backend):
-        rt = ServeRuntime(cfg, params, pack=pack, max_slots=4,
-                          max_len=max_len, attn_backend=backend)
-        uids = [rt.submit(p, max_new_tokens=m) for p, m in reqs]
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        outs = rt.run()
-        torch.cuda.synchronize()
-        return [outs[u] for u in uids], time.perf_counter() - t, rt.stats
+        return serve_requests(torch, cfg, params, pack, reqs, backend)
 
     kern_fused.reset_launch_counts()
     flash_out, wall, stats = serve("flash")
@@ -369,9 +620,9 @@ def main_path(torch, args, kern_fused):
     stream_out, _, _ = serve("stream")
     agree = total = 0
     ties = 0
-    for (p, m), s_out, f_out in zip(reqs, stream_out, flash_out):
-        ref = decode_lm(cfg, params, torch.as_tensor(p)[None], m,
-                        pack=pack)[0].cpu().numpy()
+    for (p, m), s_out, f_out, ref in zip(
+            reqs, stream_out, flash_out,
+            decode_refs(torch, cfg, params, pack, reqs)):
         agree += int((s_out == ref).sum())
         total += m
         if (f_out != ref).any():
@@ -386,22 +637,91 @@ def main_path(torch, args, kern_fused):
     if agree != total:
         raise AssertionError("ServeRuntime != decode_lm")
 
-    # the served logits against the plain-version pack, on a short prompt
-    prompt = torch.as_tensor(reqs[1][0], device=DEVICE)[None]
-    lg_k = T.forward(cfg, params, prompt, pack=pack)[0]
-    lg_o = T.forward(cfg, params, prompt, pack=with_fused(pack, "oracle"))[0]
-    scale = float(lg_o.abs().max())
-    dev = float((lg_k - lg_o).abs().max()) / scale
-    print(f"logits kernel pack vs plain-version pack: max |diff| / max|logit|"
-          f" = {dev:.3e} (finite: {bool(torch.isfinite(lg_k).all())})",
-          flush=True)
+    logits_vs_plain(torch, cfg, params, pack, reqs[1][0])
+    step = decode_step_s(torch, cfg, params, pack, reqs)
+    return cfg, step, counts, params, pack, reqs, calib
+
+
+def serve_requests(torch, cfg, params, pack, reqs, backend):
+    """Serve ``reqs`` through ``ServeRuntime``: (outputs in request order,
+    seconds, the runtime's stats)."""
+    from repro_torch.serve import ServeRuntime
+
+    rt = ServeRuntime(cfg, params, pack=pack, max_slots=4, max_len=MAX_LEN,
+                      attn_backend=backend)
+    uids = [rt.submit(p, max_new_tokens=m) for p, m in reqs]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = rt.run()
+    torch.cuda.synchronize()
+    return [outs[u] for u in uids], time.perf_counter() - t, rt.stats
+
+
+def decode_refs(torch, cfg, params, pack, reqs):
+    """Each request's greedy tokens from ``decode_lm`` alone."""
+    from repro_torch.serve import decode_lm
+
+    return [decode_lm(cfg, params, torch.as_tensor(p)[None], m,
+                      pack=pack)[0].cpu().numpy() for p, m in reqs]
+
+
+def runtime_agreement(torch, cfg, params, pack, reqs, outs) -> float:
+    """``ServeRuntime`` tokens against ``decode_lm``'s; raises unless every
+    token agrees."""
+    agree = total = 0
+    for (p, m), out, ref in zip(reqs, outs,
+                                decode_refs(torch, cfg, params, pack, reqs)):
+        if out.shape != (m,) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"bad completion {out} for budget {m}")
+        agree += int((out == ref).sum())
+        total += m
+    if agree != total:
+        raise AssertionError(f"ServeRuntime != decode_lm: {agree}/{total}")
+    return agree / total
+
+
+def logits_vs_plain(torch, cfg, params, pack, prompt,
+                    legacy_ops=None) -> float:
+    """The served logits of one prompt's prefill against the plain-version
+    pack: ``fused="oracle"``, or on the legacy ``use_pallas`` route (pass
+    the ``kernels.ops`` module as ``legacy_ops``) the same pack with
+    ``ops.analog_mvm`` and ``ops.analog_mvm_parasitic`` on their plain
+    versions; raises past 1e-3 of the logit scale or on a non-finite
+    logit."""
+    from repro_torch.models.transformer import forward
+
+    prompt = torch.as_tensor(prompt, device=DEVICE)[None]
+    lg_k = forward(cfg, params, prompt, pack=pack)[0]
+    if legacy_ops is None:
+        lg_o = forward(cfg, params, prompt,
+                       pack=with_spec(pack, fused="oracle"))[0]
+    else:
+        plain = {nm: functools.partial(getattr(legacy_ops, nm),
+                                       backend="oracle")
+                 for nm in ("analog_mvm", "analog_mvm_parasitic")}
+        with swapped(legacy_ops, **plain):
+            lg_o = forward(cfg, params, prompt, pack=pack)[0]
+    dev = float((lg_k - lg_o).abs().max()) / float(lg_o.abs().max())
+    what = "plain-version pack" if legacy_ops is None \
+        else "the legacy kernels' plain versions"
+    print(f"logits kernel pack vs {what} ({prompt.shape[1]}-token prefill): "
+          f"max |diff| / max|logit| = {dev:.3e} (finite: "
+          f"{bool(torch.isfinite(lg_k).all())})", flush=True)
     if not bool(torch.isfinite(lg_k).all()) or dev > 1e-3:
         raise AssertionError("served logits disagree with the plain version")
+    return dev
 
-    # decode-step time: 4 rows decoding together through the flash path
+
+def decode_step_s(torch, cfg, params, pack, reqs) -> float:
+    """Median seconds of one decode step, 4 rows decoding together through
+    the flash path (steps 3..12 of 12)."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+
     prompts = torch.as_tensor(np.stack([r[0][:3] for r in reqs[:4]]),
                               device=DEVICE)
-    logits, cache = T.prefill(cfg, params, prompts, max_len, pack=pack)
+    logits, cache = T.prefill(cfg, params, prompts, MAX_LEN, pack=pack)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     times = []
     for _ in range(12):
@@ -412,8 +732,89 @@ def main_path(torch, args, kern_fused):
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    step = sorted(times[2:])[len(times[2:]) // 2]
-    return cfg, step, counts
+    return sorted(times[2:])[len(times[2:]) // 2]
+
+
+def path_p1(torch, cfg, params, pack, reqs, calib, kern_fused):
+    """Path P1: the main path's conductances under parasitics (``r_hat``
+    1e-4, ``fused="kernel"``), recalibrated and serving ``reqs``."""
+    from repro_torch.serve import calibrate_lm
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    kern_fused.reset_launch_counts()
+    pack = calibrate_lm(cfg, params, with_spec(pack, r_hat=R_HAT), calib)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    outs, wall, stats = serve_requests(torch, cfg, params, pack, reqs,
+                                       "stream")
+    counts = dict(kern_fused.LAUNCHES)
+    print(f"path P1 (r_hat {R_HAT:g}, fused kernel): calibrated in "
+          f"{t_cal:.2f} s; served {len(reqs)} requests "
+          f"({stats['tokens_out']} tokens, {stats['prefill_calls']} "
+          f"prefills, {stats['decode_steps']} decode steps) in {wall:.3f} s; "
+          f"launches {counts}", flush=True)
+    if counts["fused_mvm_parasitic"] == 0 or counts["fused_mvm"]:
+        raise AssertionError(f"path P1 did not run on the fused parasitic "
+                             f"kernel alone: {counts}")
+    agree = runtime_agreement(torch, cfg, params, pack, reqs, outs)
+    dev = logits_vs_plain(torch, cfg, params, pack, reqs[1][0])
+    step = decode_step_s(torch, cfg, params, pack, reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"path P1: runtime(stream) == decode_lm agreement {agree:.4f}; "
+          f"decode step (4 rows, {cfg.n_layers} layers, flash attention) "
+          f"{step * 1e3:.3f} ms, {4 / step:.1f} tokens/s; calibration "
+          f"{t_cal:.2f} s; peak memory {peak:.2f} GiB", flush=True)
+    return counts, {"step_s": step, "calib_s": t_cal, "logit_dev": dev}
+
+
+def path_p2(torch, ops, tol, cfg, params, pack, reqs, calib, kern_fused,
+            r_hat):
+    """Path P2: the legacy ``use_pallas`` route on the main path's
+    conductances at ``r_hat``, recalibrated and serving ``reqs``; then one
+    prefill's logits against the plain legacy versions and, under
+    parasitics, the bit-line kernel held at the shapes the calibration gave
+    it.  Returns (launch counts, the bit-line kernel's totals or None)."""
+    from repro_torch.serve import calibrate_lm
+
+    bitline = ops.bitline_mvm
+    seen = {}
+
+    def recording(g, x, r, *, backend="kernel"):
+        entry = seen.setdefault((tuple(g.shape), tuple(x.shape)), [g, x, 0])
+        entry[2] += 1
+        return bitline(g, x, r, backend=backend)
+
+    t0 = time.perf_counter()
+    kern_fused.reset_launch_counts()
+    with swapped(ops, bitline_mvm=recording):
+        pack = calibrate_lm(cfg, params, with_spec(pack, use_pallas=True,
+                                                   fused="off", r_hat=r_hat),
+                            calib)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    outs, wall, stats = serve_requests(torch, cfg, params, pack, reqs,
+                                       "stream")
+    counts = dict(kern_fused.LAUNCHES)
+    agree = runtime_agreement(torch, cfg, params, pack, reqs, outs)
+    print(f"path P2 (use_pallas, r_hat {r_hat:g}): calibrated in "
+          f"{t_cal:.2f} s; served {len(reqs)} requests "
+          f"({stats['tokens_out']} tokens, {stats['decode_steps']} decode "
+          f"steps) in {wall:.3f} s; runtime(stream) == decode_lm agreement "
+          f"{agree:.4f}; launches {counts}", flush=True)
+    want = (("bitline_mvm", "analog_bitline_diff") if r_hat
+            else ("analog_mvm_diff",))
+    if any(counts[k] == 0 for k in want) or counts["fused_mvm"] \
+            or counts["fused_mvm_parasitic"]:
+        raise AssertionError(f"path P2 at r_hat {r_hat:g} did not run on "
+                             f"{want}: {counts}")
+    if sum(e[2] for e in seen.values()) != counts["bitline_mvm"]:
+        raise AssertionError("a bit-line launch of the calibration was not "
+                             "recorded")
+    logits_vs_plain(torch, cfg, params, pack, reqs[1][0], legacy_ops=ops)
+    bl = bitline_at_calibration(torch, ops, tol, seen, r_hat) if seen \
+        else None
+    return counts, bl
 
 
 def main() -> int:
@@ -458,11 +859,35 @@ def main() -> int:
     cache_dtype = getattr(torch, cfg.dtype)
     fl = flash_checks(torch, ops, tol, cfg, args.layers, MAX_LEN,
                       cache_dtype)
+    t = time.perf_counter()
+    pgrid = check_parasitic_grids(torch, ops, tol)
+    print(f"parasitic/legacy CPU test grids on the card: "
+          f"{len(tol.FUSED_PARASITIC_GRID)} fused parasitic, "
+          f"{len(tol.BITLINE_GRID)} bit-line, "
+          f"{len(tol.LEGACY_PARASITIC_GRID)} legacy parasitic, "
+          f"{len(tol.LEGACY_GRID)} legacy cases within the bound; max_abs_err "
+          f"{pgrid} ({time.perf_counter() - t:.1f} s)", flush=True)
+    t = time.perf_counter()
+    par = parasitic_full_width(torch, A, E, ops, tol, cfg, args.layers)
+    print(f"parasitic/legacy full-width checks in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
 
-    cfg, step_s, counts = main_path(torch, args, kern_fused)
+    cfg, step_s, counts, params, pack, reqs, calib = main_path(
+        torch, args, kern_fused)
     print(f"decode step (4 rows, {cfg.n_layers} layers, flash attention): "
           f"{step_s * 1e3:.3f} ms, {4 / step_s:.1f} tokens/s on {card}",
           flush=True)
+    t = time.perf_counter()
+    p1_counts, p1 = path_p1(torch, cfg, params, pack, reqs, calib, kern_fused)
+    print(f"path P1 in {time.perf_counter() - t:.1f} s", flush=True)
+    short = [(p[:8], m) for p, m in reqs[:3]]
+    t = time.perf_counter()
+    p2_counts, bl = path_p2(torch, ops, tol, cfg, params, pack, short, calib,
+                            kern_fused, R_HAT)
+    p2_ideal, _ = path_p2(torch, ops, tol, cfg, params, pack, short, calib,
+                          kern_fused, 0.0)
+    print(f"path P2 in {time.perf_counter() - t:.1f} s", flush=True)
+    del pack
 
     kernels = [
         {"name": "fused_mvm", "route": "cuda",
@@ -479,6 +904,25 @@ def main() -> int:
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
     ]
+    par["bitline_mvm"] = bl
+    for name, src, replaces, launches in (
+            ("fused_mvm_parasitic", "fused_mvm_parasitic.cu",
+             PARASITIC_REPLACES, p1_counts["fused_mvm_parasitic"]),
+            ("bitline_mvm", "bitline.cu", BITLINE_REPLACES,
+             p2_counts["bitline_mvm"]),
+            ("analog_bitline_diff", "bitline.cu", BL_DIFF_REPLACES,
+             p2_counts["analog_bitline_diff"]),
+            ("analog_mvm_diff", "fused_mvm.cu", MVM_DIFF_REPLACES,
+             p2_ideal["analog_mvm_diff"])):
+        t = par[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(t["max_abs_err"], pgrid[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,9 @@ Idiom, relative to the reference:
   ``pack_from_numpy``) take ``device="cuda"`` by default and run on the
   CPU only when asked; everything else follows the device of the tensors
   it is given;
-* the two kernels of the serving path (``kernels.fused``) are CUDA C++
-  for ``sm_90a``; their wrappers run the plain PyTorch version only for
-  CPU tensors.
+* the kernels (``kernels.fused``, ``kernels.bitline``,
+  ``kernels.analog_mvm``) are CUDA C++ for ``sm_90a``; their wrappers run
+  the plain PyTorch versions only for CPU tensors.
 
 The reference pins ``Precision.HIGHEST`` on every float32 dot, so TF32 is
 switched off here for matmuls and cuDNN alike.

@@ -5,13 +5,14 @@ of ``repro.core.analog``).
 stacks; ``analog_matmul`` executes ``y ~= x @ W`` through the analog
 pipeline: quantize x -> input bit planes -> per-(K-partition, slice)
 analog dot products -> differential subtraction -> ADC -> shift-and-add
--> exact affine correction -> dequantize.  With ``AnalogSpec.fused`` set,
-the differential calibrated chain runs as one hand-written CUDA kernel
-launch per call (``repro_torch.kernels.ops.fused_mvm``).
-
-Not ported yet, and raising ``NotImplementedError``: parasitic bit-line
-resistance (``r_hat != 0``) and the legacy ``use_pallas`` route
-(ROADMAP queue B items 4-7).
+-> exact affine correction -> dequantize, with the dot products optionally
+through the parasitic bit-line circuit (``r_hat != 0``, paper Sec. 8).
+With ``AnalogSpec.fused`` set, the differential calibrated chain runs as
+one hand-written CUDA kernel launch per call
+(``repro_torch.kernels.ops.fused_mvm`` / ``fused_mvm_parasitic``); the
+legacy ``use_pallas`` route runs the unsliced Design-A kernels
+(``ops.analog_mvm`` / ``analog_mvm_parasitic``) and, under parasitics, the
+bit-line kernel (``ops.bitline_mvm``) in the composed chain.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import adc as adc_lib
+from repro_torch.core import parasitics
 from repro_torch.core.errors import (DriftModel, ErrorModel, FaultModel,
                                      fold_seed, generator)
 from repro_torch.core.mapping import (
@@ -37,10 +39,6 @@ from repro_torch.core.quant import (
     quantize_acts,
     quantize_weights,
 )
-
-_PARASITICS_ITEM = ("parasitic bit-line resistance is not ported yet "
-                    "(ROADMAP queue B items 4-6)")
-
 
 @dataclasses.dataclass(frozen=True)
 class AnalogSpec:
@@ -217,10 +215,26 @@ def program(w: torch.Tensor, spec: AnalogSpec,
     return program_from_codes(program_codes(w, spec), spec, seed)
 
 
-def _apply_line(planes: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _apply_line(planes: torch.Tensor, g: torch.Tensor,
+                spec: AnalogSpec) -> torch.Tensor:
     """Per-plane analog dot products: (B, M, P, rows) x (S, P, rows, N)
-    -> (B, S, P, M, N), in float32 (TF32 is off package-wide)."""
-    return torch.einsum("bmpr,sprn->bspmn", planes, g)
+    -> (B, S, P, M, N), in float32 (TF32 is off package-wide); under
+    parasitics each plane's bottom currents through every (slice,
+    partition) array."""
+    if not spec.parasitics_on:
+        return torch.einsum("bmpr,sprn->bspmn", planes, g)
+    b, m_, p, rows = planes.shape
+    s, _, _, n = g.shape
+    if spec.use_pallas:
+        # the bit-line kernel, bit planes folded into its plane rows: one
+        # launch covers every (slice, partition) array
+        from repro_torch.kernels import ops as kops
+
+        xp = planes.permute(2, 0, 1, 3).reshape(p, b * m_, rows)
+        out = kops.bitline_mvm(g.reshape(s * p, rows, n), xp, spec.r_hat)
+        return out.reshape(s, p, b, m_, n).permute(2, 0, 1, 3, 4)
+    return parasitics.bottom_current(planes.permute(0, 2, 1, 3)[:, None],
+                                     g[None], spec.r_hat)
 
 
 def _maybe_pallas_fastpath(spec: AnalogSpec, collect: bool) -> bool:
@@ -275,8 +289,6 @@ def analog_matmul(
     ``(y_ideal, stats)`` with ``stats`` the ``(S, 2)`` pre-ADC lo/hi
     percentiles for ADC range calibration (ADC bypassed).
     """
-    if spec.parasitics_on:
-        raise NotImplementedError(_PARASITICS_ITEM)
     m = spec.mapping
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -302,23 +314,44 @@ def analog_matmul(
         m.n_slices, dtype=xf.dtype, device=x.device))
 
     if _maybe_pallas_fastpath(spec, collect) and adc_lo is not None:
-        if spec.fused == "off":
-            raise NotImplementedError(
-                "the legacy use_pallas route is not ported (ROADMAP queue "
-                "B items 6-7); serve with AnalogSpec.fused='kernel'")
         from repro_torch.kernels import ops as kops
 
-        n_bits = None if spec.input_accum == "analog" else spec.n_planes
-        y = kops.fused_mvm(
-            x_parts, aw.g_pos, aw.g_neg,
-            adc_lo=adc_lo, adc_hi=adc_hi, adc_bits=spec.adc.bits,
-            cell_bits=m.cell_bits, n_bits=n_bits,
-            scale=gain * aw.w_scale * xq.scale,
-            backend="oracle" if spec.fused == "oracle" else "kernel",
-        )
+        if spec.fused != "off":
+            # whole-chain fused kernels: ADC, dequant and slice
+            # accumulation inside the launch
+            backend = "oracle" if spec.fused == "oracle" else "kernel"
+            scale = gain * aw.w_scale * xq.scale
+            if spec.parasitics_on:
+                y = kops.fused_mvm_parasitic(
+                    x_parts, aw.g_pos, aw.g_neg, r_hat=spec.r_hat,
+                    adc_lo=adc_lo, adc_hi=adc_hi, adc_bits=spec.adc.bits,
+                    cell_bits=m.cell_bits, n_bits=spec.n_planes, scale=scale,
+                    backend=backend)
+            else:
+                n_bits = None if spec.input_accum == "analog" \
+                    else spec.n_planes
+                y = kops.fused_mvm(
+                    x_parts, aw.g_pos, aw.g_neg, adc_lo=adc_lo,
+                    adc_hi=adc_hi, adc_bits=spec.adc.bits,
+                    cell_bits=m.cell_bits, n_bits=n_bits, scale=scale,
+                    backend=backend)
+            return y.reshape(*lead, aw.n)
+
+        # the legacy use_pallas route: unsliced Design A, epilogue in
+        # code units inside the kernel
+        if spec.parasitics_on:
+            d_codes = kops.analog_mvm_parasitic(
+                x_parts, aw.g_pos, aw.g_neg, r_hat=spec.r_hat,
+                n_bits=spec.n_planes, adc_lo=adc_lo, adc_hi=adc_hi,
+                adc_bits=spec.adc.bits, gain=gain)
+        else:
+            d_codes = kops.analog_mvm(
+                x_parts, aw.g_pos, aw.g_neg, adc_lo=adc_lo, adc_hi=adc_hi,
+                adc_bits=spec.adc.bits, gain=gain)
+        y = d_codes * aw.w_scale * xq.scale
         return y.reshape(*lead, aw.n)
 
-    if spec.input_accum == "analog":
+    if spec.input_accum == "analog" and not spec.parasitics_on:
         # analog accumulation over input bits commutes with the dot
         # product: one matmul per (slice, partition)
         planes = x_parts[None]                                # (1, M, P, rows)
@@ -329,12 +362,23 @@ def analog_matmul(
         planes = planes.reshape(nb, -1, p, rows)              # (B, M, P, rows)
         bit_w = 2.0 ** torch.arange(nb, dtype=xf.dtype, device=x.device)
 
-    v_pos = _apply_line(planes, aw.g_pos)                     # (B, S, P, M, N)
+    v_pos = _apply_line(planes, aw.g_pos, spec)               # (B, S, P, M, N)
     if m.scheme == "differential":
-        v = v_pos - _apply_line(planes, aw.g_neg)             # analog subtract
+        v = v_pos - _apply_line(planes, aw.g_neg, spec)       # analog subtract
     else:
         v = v_pos
-    s_b = planes.sum(dim=-1)                                  # (B, M, P)
+    if spec.input_accum == "analog" and spec.parasitics_on:
+        # the solve is per input bit; analog accumulation happens in the
+        # switched-capacitor stage after the bit line, before the ADC
+        # (bits ascending from the first, the fused kernels' fold order)
+        acc = v[0]
+        for b in range(1, v.shape[0]):
+            acc = acc + v[b] * bit_w[b]
+        v = acc[None]
+        bit_w = torch.ones(1, dtype=xf.dtype, device=x.device)
+        s_b = x_parts.sum(dim=-1)[None]                       # (1, M, P)
+    else:
+        s_b = planes.sum(dim=-1)                              # (B, M, P)
 
     if collect:
         stats = torch.stack([
@@ -374,7 +418,7 @@ def analog_matmul(
         codes = v_hat * gain                                  # g_min cancels
         d = torch.einsum("s,b,bspmn->mn", slice_w, bit_w, codes)
     elif m.unit_column:
-        vu = _apply_line(planes, aw.g_unit)                   # (B, S, P, M, 1)
+        vu = _apply_line(planes, aw.g_unit, spec)             # (B, S, P, M, 1)
         if not collect and spec.adc.style != "none":
             vu = adc_lib.adc_quantize(
                 vu, lo, hi, bits if spec.adc.style == "fpg" else spec.adc.bits)

@@ -9,8 +9,9 @@ interface::
          src/repro_torch/kernels/csrc/<name>.cu
 
 into ``build/repro_torch/`` at the root of the checkout (``.gitignore``
-lists ``build/``).  Libraries are named by a hash of their source and
-flags, so an edited source rebuilds and an unchanged one loads as built.
+lists ``build/``).  Libraries are named by a hash of their source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads as built.
 :func:`build_all` starts one ``nvcc`` per missing library, all at once.
 """
 
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_mvm", "flash_decode")
+SOURCES = ("fused_mvm", "flash_decode", "fused_mvm_parasitic", "bitline")
 
 #: ptxas register/shared-memory report of each library built in this
 #: process (``-Xptxas -v`` output), by source name
@@ -52,7 +53,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + repr(NVCC_FLAGS).encode()) \
+        .hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

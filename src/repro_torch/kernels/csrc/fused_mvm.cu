@@ -44,9 +44,21 @@
 //   the batch every one of them waited out a memory round trip per row.
 // * Bit-serial mode (n_bits > 0) keeps one accumulator per bit plane, so
 //   its row tile is smaller (BM = 2) to stay in registers.
+//
+// The same kernel, with LEGACY set, also replaces
+// src/repro/kernels/analog_mvm.py::analog_mvm_diff_pallas (kernel body
+// _diff_kernel), the unsliced differential chain of the legacy use_pallas
+// route (repro_analog_mvm_diff): S == 1 and analog accumulation, but per
+// partition a value-unit ADC (lo + code * lsb, no degenerate-range guard)
+// times gain, summed over partitions in code units with no final scale,
+// equal to kernels/ref.py::analog_mvm_diff to the bit.  The TPU kernel's
+// dot ran at the TPU's default precision; its oracle pins HIGHEST, and this
+// is fp32.  gain is a runtime argument, never compiled in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "analog.cuh"
 
 namespace {
 
@@ -54,31 +66,17 @@ constexpr int kCols = 64;        // output columns per block (= threads)
 constexpr int kRowChunk = 128;   // array rows of x staged per pass
 constexpr int kBatch = 16;       // array rows of g loaded per batch
 
-__device__ __forceinline__ float adc_lsb(float lo, float hi, int bits) {
-  float lsb = __fdiv_rn(__fsub_rn(hi, lo), (float)((1 << bits) - 1));
-  return lsb <= 0.f ? 1.f : lsb;
-}
-
-// fused_adc_code_units: clip/round to 2**bits levels, value in code units
-// (lo / lsb + code).  rintf rounds half to even, like jnp.round.
-__device__ __forceinline__ float adc_code_units(float v, float lo, float lsb,
-                                                float top) {
-  float code = rintf(__fdiv_rn(__fsub_rn(v, lo), lsb));
-  code = fminf(fmaxf(code, 0.f), top);
-  return __fadd_rn(__fdiv_rn(lo, lsb), code);
-}
-
-template <int BM, int NB>
+template <int BM, int NB, bool LEGACY>
 __global__ void __launch_bounds__(kCols)
 fused_mvm_kernel(const float* __restrict__ x,      // (M, P, R)
                  const float* __restrict__ gp,     // (S, P, R, N)
                  const float* __restrict__ gm,     // (S, P, R, N)
                  const float* __restrict__ lo_s,   // (S,)
                  const float* __restrict__ hi_s,   // (S,)
-                 const float* __restrict__ scale,  // (1,)
+                 const float* __restrict__ scale,  // (1,), unused if LEGACY
                  float* __restrict__ y,            // (M, N)
                  int M, int P, int R, int N, int S,
-                 int nbits, int adc_bits, int cell_bits) {
+                 int nbits, int adc_bits, int cell_bits, float gain) {
   __shared__ float xs[BM][kRowChunk];
   const int n = blockIdx.x * kCols + threadIdx.x;
   const int m0 = blockIdx.y * BM;
@@ -97,7 +95,7 @@ fused_mvm_kernel(const float* __restrict__ x,      // (M, P, R)
     for (int mm = 0; mm < BM; ++mm) acc[mm] = 0.f;
     for (int s = 0; s < S; ++s) {
       const float lo = lo_s[s];
-      const float lsb = adc_lsb(lo, hi_s[s], adc_bits);
+      const float lsb = repro::adc_lsb(lo, hi_s[s], adc_bits);
       const size_t base = ((size_t)s * P + p) * (size_t)R * N + n;
       float v[NB][BM];
 #pragma unroll
@@ -153,6 +151,14 @@ fused_mvm_kernel(const float* __restrict__ x,      // (M, P, R)
         }
       }
       if (!col_ok) continue;
+      if (LEGACY) {
+        // value-unit ADC times gain: code units, summed over partitions
+#pragma unroll
+        for (int mm = 0; mm < BM; ++mm)
+          acc[mm] = __fmul_rn(
+              repro::adc_value_units(v[0][mm], lo, hi_s[s], top), gain);
+        continue;
+      }
       const float w_s = ldexpf(1.f, cell_bits * s);   // slice weight 2**(cb*s)
 #pragma unroll
       for (int mm = 0; mm < BM; ++mm) {
@@ -160,7 +166,7 @@ fused_mvm_kernel(const float* __restrict__ x,      // (M, P, R)
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
           if (b < nb) {
-            const float q = adc_code_units(v[b][mm], lo, lsb, top);
+            const float q = repro::adc_code_units(v[b][mm], lo, lsb, top);
             a_s = __fadd_rn(a_s, __fmul_rn(q, ldexpf(1.f, NB == 1 ? 0 : b)));
           }
         }
@@ -173,22 +179,32 @@ fused_mvm_kernel(const float* __restrict__ x,      // (M, P, R)
   }
 
   if (!col_ok) return;
+  if (LEGACY) {
+#pragma unroll
+    for (int mm = 0; mm < BM; ++mm) {
+      if (mm < mrows) y[(size_t)(m0 + mm) * N + n] = tot[mm];
+    }
+    return;
+  }
   float out_scale = scale[0];
-  if (S == 1) out_scale = __fmul_rn(out_scale, adc_lsb(lo_s[0], hi_s[0], adc_bits));
+  if (S == 1)
+    out_scale = __fmul_rn(out_scale,
+                          repro::adc_lsb(lo_s[0], hi_s[0], adc_bits));
 #pragma unroll
   for (int mm = 0; mm < BM; ++mm) {
     if (mm < mrows) y[(size_t)(m0 + mm) * N + n] = __fmul_rn(tot[mm], out_scale);
   }
 }
 
-template <int BM, int NB>
+template <int BM, int NB, bool LEGACY = false>
 void launch(const float* x, const float* gp, const float* gm, const float* lo,
             const float* hi, const float* scale, float* y, int M, int P, int R,
             int N, int S, int nbits, int adc_bits, int cell_bits,
-            cudaStream_t stream) {
+            cudaStream_t stream, float gain = 0.f) {
   dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM);
-  fused_mvm_kernel<BM, NB><<<grid, kCols, 0, stream>>>(
-      x, gp, gm, lo, hi, scale, y, M, P, R, N, S, nbits, adc_bits, cell_bits);
+  fused_mvm_kernel<BM, NB, LEGACY><<<grid, kCols, 0, stream>>>(
+      x, gp, gm, lo, hi, scale, y, M, P, R, N, S, nbits, adc_bits, cell_bits,
+      gain);
 }
 
 }  // namespace
@@ -209,5 +225,17 @@ extern "C" int repro_fused_mvm(const float* x, const float* gp, const float* gm,
     launch<2, 8>(x, gp, gm, lo, hi, scale, y, M, P, R, N, S, nbits, adc_bits,
                  cell_bits, st);
   }
+  return (int)cudaGetLastError();
+}
+
+// The legacy Design-A chain: x (M, P, R), g_pos/g_neg (P, R, N), scalar
+// lo/hi; returns code units.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_analog_mvm_diff(const float* x, const float* gp,
+                                     const float* gm, const float* lo,
+                                     const float* hi, float* y, int M, int P,
+                                     int R, int N, int adc_bits, float gain,
+                                     void* stream) {
+  launch<16, 1, true>(x, gp, gm, lo, hi, nullptr, y, M, P, R, N, 1, 0,
+                      adc_bits, 0, static_cast<cudaStream_t>(stream), gain);
   return (int)cudaGetLastError();
 }

@@ -1,21 +1,26 @@
-"""The serving path's two hand-written CUDA kernels and their launchers
-(counterpart of ``repro.kernels.fused``).
+"""The fused serving kernels and their launchers (counterpart of
+``repro.kernels.fused``).
 
 * :func:`fused_mvm_cuda` — ``csrc/fused_mvm.cu``, replacing
   ``repro.kernels.fused.fused_mvm_pallas``: the whole differential analog
   chain of one matmul site (bit planes, dot with ``g_pos - g_neg``,
   calibrated ADC in code units, shift-and-add, partition sum, dequant) in
   one launch.
+* :func:`fused_mvm_parasitic_cuda` — ``csrc/fused_mvm_parasitic.cu``,
+  replacing ``repro.kernels.fused.fused_mvm_parasitic_pallas``: the same
+  chain under bit-line parasitics (a Thomas sweep of every bit plane down
+  both lines, the analog bit fold, one ADC per slice) in one launch.
 * :func:`flash_decode_cuda` — ``csrc/flash_decode.cu``, replacing
   ``repro.kernels.fused.flash_attention_pallas``: single-token decode
   attention over the dense per-slot KV cache, masked by per-row fills.
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
 output, launches on PyTorch's current stream, raises if the launch was
-refused, and adds one to its count in :data:`LAUNCHES`.  The plain PyTorch
-versions live in ``kernels.ref``; ``kernels.ops`` picks between them by
-device.  The epilogue helpers below are the reference's, shared with the
-plain version so the two cannot diverge.
+refused, and adds one to its count in :data:`LAUNCHES` (which also counts
+the launchers of ``kernels.bitline`` and ``kernels.analog_mvm``).  The
+plain PyTorch versions live in ``kernels.ref``; ``kernels.ops`` picks
+between them by device.  The epilogue helpers below are the reference's,
+shared with the plain version so the two cannot diverge.
 """
 
 from __future__ import annotations
@@ -28,8 +33,11 @@ import torch
 from repro_torch.core.quant import true_div
 from repro_torch.kernels import build
 
-#: launches of each kernel since the last :func:`reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"fused_mvm": 0, "flash_decode": 0}
+#: launches of each kernel of the package since the last
+#: :func:`reset_launch_counts`
+LAUNCHES: Dict[str, int] = {"fused_mvm": 0, "flash_decode": 0,
+                            "fused_mvm_parasitic": 0, "bitline_mvm": 0,
+                            "analog_bitline_diff": 0, "analog_mvm_diff": 0}
 
 #: kernel limits (the CUDA sources size their register tiles by these)
 MAX_SLICES = 8
@@ -87,12 +95,42 @@ def _require(t: torch.Tensor, name: str, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _mvm_shapes(x_parts: torch.Tensor, g_pos: torch.Tensor,
+                g_neg: torch.Tensor, *, sliced: bool):
+    """Check an analog MVM's operands — float32, contiguous, on one CUDA
+    device; x_parts (M, P, rows), g_pos and g_neg alike, (S, P, rows, N)
+    if ``sliced`` else (P, rows, N) — and return
+    ``(device, M, P, rows, N)``."""
+    dev = x_parts.device
+    if dev.type != "cuda":
+        raise ValueError(f"the MVM kernels need CUDA tensors, got {dev}")
+    for t, name in ((x_parts, "x_parts"), (g_pos, "g_pos"), (g_neg, "g_neg")):
+        _require(t, name, torch.float32, dev)
+    m, p, rows = x_parts.shape
+    if (g_pos.ndim != (4 if sliced else 3)
+            or tuple(g_pos.shape[-3:-1]) != (p, rows)
+            or tuple(g_neg.shape) != tuple(g_pos.shape)):
+        raise ValueError(
+            f"shape mismatch: x_parts {tuple(x_parts.shape)}, g_pos "
+            f"{tuple(g_pos.shape)}, g_neg {tuple(g_neg.shape)}")
+    return dev, m, p, rows, g_pos.shape[-1]
+
+
+def _scalar(v, device) -> torch.Tensor:
+    """``v`` (a number or a one-element tensor) as a float32 (1,) tensor
+    on ``device``."""
+    return torch.as_tensor(v, device=device).to(torch.float32).reshape(1) \
+        .contiguous()
+
+
 def _check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
 _FUSED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_PARASITIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
 _FLASH_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                + [ctypes.c_float, ctypes.c_void_p])
 
@@ -120,17 +158,8 @@ def fused_mvm_cuda(
     n_bits: Optional[int],   # None = analog input accumulation
 ) -> torch.Tensor:
     """Launch the fused analog MVM kernel; returns the dequantized (M, N)."""
-    dev = x_parts.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_mvm_cuda needs CUDA tensors, got {dev}")
-    for t, name in ((x_parts, "x_parts"), (g_pos, "g_pos"), (g_neg, "g_neg")):
-        _require(t, name, torch.float32, dev)
-    m, p, rows = x_parts.shape
-    s, p2, rows2, n = g_pos.shape
-    if (p2, rows2) != (p, rows) or tuple(g_neg.shape) != tuple(g_pos.shape):
-        raise ValueError(
-            f"shape mismatch: x_parts {tuple(x_parts.shape)}, g_pos "
-            f"{tuple(g_pos.shape)}, g_neg {tuple(g_neg.shape)}")
+    dev, m, p, rows, n = _mvm_shapes(x_parts, g_pos, g_neg, sliced=True)
+    s = g_pos.shape[0]
     if not 1 <= s <= MAX_SLICES:
         raise ValueError(f"fused_mvm takes 1..{MAX_SLICES} slices, got {s}")
     if n_bits is not None and not 1 <= n_bits <= MAX_BITS:
@@ -141,8 +170,7 @@ def fused_mvm_cuda(
                          "of the kernel's float32 range")
     lo = adc_lo.to(device=dev, dtype=torch.float32).reshape(s).contiguous()
     hi = adc_hi.to(device=dev, dtype=torch.float32).reshape(s).contiguous()
-    sc = torch.as_tensor(scale, device=dev).to(torch.float32).reshape(1) \
-        .contiguous()
+    sc = _scalar(scale, dev)
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return y
@@ -155,6 +183,51 @@ def fused_mvm_cuda(
             int(cell_bits), _stream(dev))
     _check_launch(rc, "fused_mvm")
     LAUNCHES["fused_mvm"] += 1
+    return y
+
+
+def fused_mvm_parasitic_cuda(
+    x_parts: torch.Tensor,   # (M, P, rows) float32, integer-valued
+    g_pos: torch.Tensor,     # (S, P, rows, N) float32
+    g_neg: torch.Tensor,     # (S, P, rows, N) float32
+    r_hat: torch.Tensor,     # scalar parasitic level
+    adc_lo: torch.Tensor,    # (S,)
+    adc_hi: torch.Tensor,
+    scale: torch.Tensor,     # scalar: gain * w_scale * x_scale
+    *,
+    adc_bits: int,
+    cell_bits: int,
+    n_bits: int,
+) -> torch.Tensor:
+    """Launch the fused parasitic MVM kernel; returns the dequantized
+    (M, N)."""
+    dev, m, p, rows, n = _mvm_shapes(x_parts, g_pos, g_neg, sliced=True)
+    s = g_pos.shape[0]
+    if not 1 <= s <= MAX_SLICES:
+        raise ValueError(
+            f"fused_mvm_parasitic takes 1..{MAX_SLICES} slices, got {s}")
+    if not 1 <= n_bits <= MAX_BITS:
+        raise ValueError(
+            f"fused_mvm_parasitic takes n_bits in 1..{MAX_BITS}, got {n_bits}")
+    if not 1 <= adc_bits <= 24 or cell_bits * (s - 1) > 100 or m > 65535:
+        raise ValueError(f"adc_bits={adc_bits}, cell_bits={cell_bits}, "
+                         f"M={m} out of the kernel's range")
+    r = _scalar(r_hat, dev)
+    lo = adc_lo.to(device=dev, dtype=torch.float32).reshape(s).contiguous()
+    hi = adc_hi.to(device=dev, dtype=torch.float32).reshape(s).contiguous()
+    sc = _scalar(scale, dev)
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return y
+    lib = _lib("fused_mvm_parasitic", ("repro_fused_mvm_parasitic",),
+               _PARASITIC_ARGS)
+    with torch.cuda.device(dev):
+        rc = lib.repro_fused_mvm_parasitic(
+            _ptr(x_parts), _ptr(g_pos), _ptr(g_neg), _ptr(r), _ptr(lo),
+            _ptr(hi), _ptr(sc), _ptr(y), m, p, rows, n, s, int(n_bits),
+            int(adc_bits), int(cell_bits), _stream(dev))
+    _check_launch(rc, "fused_mvm_parasitic")
+    LAUNCHES["fused_mvm_parasitic"] += 1
     return y
 
 

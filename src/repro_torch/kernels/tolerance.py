@@ -11,6 +11,17 @@ counted; a difference explained by nothing else fails.  Sums are taken in
 different orders on the two sides, so bitwise equality is not the
 contract.
 
+The other ADC'd kernels are held to the same bound.  Fused parasitic MVM:
+its terms are the per-(partition, slice) analog bit folds of the Thomas
+currents, the grid step is ``scale``.  The legacy Design-A kernels (with
+and without parasitics) return code units ``sum_p (lo + code * lsb) *
+gain``: within 2 ulp or 0.25 of ``gain``, and a one-code flip moves an
+output by ``gain * lsb``.
+
+Bit-line currents (the Thomas sweep alone): within 2 ulps of ``|I|``.  The
+kernel, its plain version and the reference take the same rounded
+operations in the same order, so they are expected to agree to the bit.
+
 Flash decode: ``out = sum_t p_t v_t / sum_t p_t`` with ``0 <= p_t <= 1``
 and a denominator of at least 1, so summing the terms in another order
 moves each output by at most ``kv_len * eps * max_t |v_t|`` (the standard
@@ -27,14 +38,16 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.quant import true_div
 from repro_torch.kernels.fused import adc_lsb
-from repro_torch.kernels.ref import fused_pre_adc
+from repro_torch.kernels.ref import fused_pre_adc, parasitic_pre_adc
 
 F32_EPS = float(torch.finfo(torch.float32).eps)
 FUSED_ULP = 2.0       # fused MVM: ulps of the output ...
 FUSED_CODES = 0.25    # ... or this share of a dequant grid step
 EDGE_ULP = 4.0        # a one-code flip needs a pre-ADC value this near an edge
 FLASH_ULP = 4.0       # flash decode: ulps of the output, plus the sum's bound
+BITLINE_ULP = 2.0     # bit-line currents: ulps of |I|
 
 #: fused-MVM cases (m, p, s, rows, n, n_bits, cell_bits): the single-slice
 #: grid of ``tests/test_kernels.py`` in both input modes, then its
@@ -48,6 +61,32 @@ FUSED_GRID = ([(m, p, 1, r, n, nb, 7) for (m, p, r, n) in _SINGLE
 #: flash-decode cases (b, s, kv, g, hd): ragged fills, GQA groups
 FLASH_GRID = [(1, 8, 2, 1, 8), (2, 16, 2, 2, 8), (3, 40, 2, 1, 32),
               (4, 33, 4, 2, 16), (2, 9, 1, 4, 8)]
+#: bit-line cases (m, k, n, r_hat) of ``tests/test_kernels.py``: the solver
+#: grid (minimal chains, one column, a full 1152-row line, heavy sag, ragged
+#: M and N), then the dense-solve grid
+BITLINE_GRID = [(8, 17, 16, 1e-3), (32, 96, 24, 1e-4), (16, 200, 8, 1e-5),
+                (128, 64, 128, 3e-4), (4, 2, 3, 1e-3), (8, 33, 1, 5e-4),
+                (4, 1152, 4, 1e-4), (16, 72, 8, 5e-3), (3, 13, 130, 1e-4),
+                (130, 7, 5, 1e-3), (9, 129, 127, 1e-4)]
+BITLINE_DENSE_GRID = [(4, 23, 6, 2e-3), (3, 13, 9, 1e-3), (5, 130, 2, 1e-4)]
+#: legacy parasitic Design-A cases (m, p, rows, n), at r_hat 1e-3
+LEGACY_PARASITIC_GRID = [(8, 1, 16, 8), (16, 2, 33, 7), (8, 2, 8, 130),
+                         (130, 1, 72, 24)]
+#: legacy Design-A cases (m, p, rows, n, adc_bits): the shape grid at 6 and
+#: 8 ADC bits, then the edge shapes at 8
+_MVM = [(8, 1, 64, 16), (32, 2, 96, 40), (128, 1, 1152, 256),
+        (64, 3, 200, 24), (16, 2, 8, 8)]
+_MVM_EDGE = [(4, 1, 1, 8), (8, 2, 33, 7), (16, 1, 129, 130), (8, 4, 72, 3),
+             (1, 1, 64, 16), (2, 3, 40, 24)]
+LEGACY_GRID = ([c + (b,) for c in _MVM for b in (6, 8)]
+               + [c + (8,) for c in _MVM_EDGE])
+#: fused parasitic cases (m, p, s, rows, n, r_hat): single- and two-slice,
+#: a small-M decode row, each at two parasitic levels
+FUSED_PARASITIC_GRID = [c + (r,) for c in ((4, 1, 1, 24, 9), (8, 2, 2, 33, 7),
+                                           (2, 1, 1, 64, 16))
+                        for r in (1e-5, 1e-3)]
+LEGACY_GAIN = 127.0
+LEGACY_RANGE = (-50.0, 50.0)
 
 
 def fused_case(m, p, s, rows, n, seed=None):
@@ -75,10 +114,84 @@ def flash_case(b, s, kv, g, hd, seed=None):
     return q, k, v, fills
 
 
+def fused_parasitic_case(m, p, s, rows, n):
+    """numpy operands of one fused parasitic case: :func:`fused_case` with
+    the activations clipped to 8-bit signed."""
+    x, gp, gm, lo, hi = fused_case(m, p, s, rows, n, seed=rows + n)
+    return np.clip(x, -127, 127), gp, gm, lo, hi
+
+
+def bitline_case(m, k, n, seed=None):
+    """numpy operands of one bit-line case: a signed plane (m, k) in
+    {-1, 0, +1} with about 40% zeros, conductances (k, n) in [0, 1)."""
+    rng = np.random.default_rng(k if seed is None else seed)
+    x = (np.sign(rng.standard_normal((m, k)))
+         * (rng.random((m, k)) > 0.4)).astype(np.float32)
+    g = rng.random((k, n)).astype(np.float32)
+    return x, g
+
+
+def legacy_case(m, p, rows, n, seed=None):
+    """numpy operands of one legacy Design-A case: 8-bit signed integer
+    activations (m, p, rows), conductances (p, rows, n) in [0, 0.1)."""
+    rng = np.random.default_rng(m * 3 + rows if seed is None else seed)
+    x = np.clip(np.round(rng.standard_normal((m, p, rows)) * 40),
+                -127, 127).astype(np.float32)
+    gp = (rng.random((p, rows, n)) * 0.1).astype(np.float32)
+    gm = (rng.random((p, rows, n)) * 0.1).astype(np.float32)
+    return x, gp, gm
+
+
 def _spacing(mag: torch.Tensor) -> torch.Tensor:
     """float32 ulp of ``mag`` (>= 0), like ``np.spacing``."""
     mag = mag.to(torch.float32)
     return torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+
+
+def _codes_check(y, y_plain, tol_abs: float, terms) -> Dict[str, float]:
+    """Hold ``y`` against ``y_plain``: each element within ``FUSED_ULP``
+    ulps or ``tol_abs``, or off by exactly one ADC code of one term whose
+    plain pre-ADC value lies within ``EDGE_ULP`` ulps of a rounding edge
+    (or on the other side of it from the other side's own pre-ADC value,
+    where that is given).  ``terms()`` yields ``(v, lo, lsb, step, v_other)``
+    per ADC'd term: its plain pre-ADC values, range start and step, how far
+    one code moves the output, and the other side's pre-ADC values or
+    None; it is called only if some element is not tight."""
+    dev = y_plain.device
+    y = y.to(device=dev, dtype=torch.float32)
+    y_plain = y_plain.to(torch.float32)
+    d = (y - y_plain).abs()
+    mag = torch.maximum(y.abs(), y_plain.abs())
+    ulps = _spacing(mag)
+    tight = (d <= FUSED_ULP * ulps) | (d <= tol_abs)
+    explained = tight.clone()
+    if not bool(tight.all()):
+        for v, lo, lsb, step, v_other in terms():
+            t = ((v - lo) / lsb).to(torch.float64)
+            edge = lo.double() + (torch.floor(t) + 0.5) * lsb.double()
+            near = (v.double() - edge).abs() <= EDGE_ULP * _spacing(
+                v.abs()).double()
+            if v_other is not None:
+                lo_edge = edge - lsb.double()
+                vo = v_other.to(device=dev, dtype=torch.float64)
+                near |= (vo >= edge) | (vo <= lo_edge)
+            one_code = (d - step).abs() <= FUSED_ULP * ulps + tol_abs
+            explained |= near & one_code
+    bad = ~explained
+    rel = torch.where(d > 0, d / ulps, torch.zeros_like(d))
+    return {
+        "ok": not bool(bad.any()),
+        "flips": int((explained & ~tight).sum()),
+        "bad": int(bad.sum()),
+        "max_abs_err": float(d.max()) if d.numel() else 0.0,
+        "max_ulp": float(rel.max()) if d.numel() else 0.0,
+    }
+
+
+def _slice_ranges(adc_lo, adc_hi, n_slices: int, dev):
+    lo = torch.as_tensor(adc_lo, device=dev).to(torch.float32).reshape(n_slices)
+    hi = torch.as_tensor(adc_hi, device=dev).to(torch.float32).reshape(n_slices)
+    return lo, hi
 
 
 def fused_mvm_check(
@@ -99,42 +212,110 @@ def fused_mvm_check(
     ``ok``, ``flips`` (allowed one-code flips), ``bad`` (elements outside
     the bound), ``max_abs_err`` and ``max_ulp``."""
     dev = y_plain.device
-    y = y.to(device=dev, dtype=torch.float32)
-    y_plain = y_plain.to(torch.float32)
     scale = float(torch.as_tensor(scale).reshape(()))
-    d = (y - y_plain).abs()
-    mag = torch.maximum(y.abs(), y_plain.abs())
-    ulps = _spacing(mag)
-    tight = (d <= FUSED_ULP * ulps) | (d <= FUSED_CODES * scale)
-    explained = tight.clone()
-    p = x_parts.shape[1]
     n_slices = g_pos.shape[0]
-    lo = torch.as_tensor(adc_lo, device=dev).to(torch.float32).reshape(n_slices)
-    hi = torch.as_tensor(adc_hi, device=dev).to(torch.float32).reshape(n_slices)
-    if not bool(tight.all()):
+    lo, hi = _slice_ranges(adc_lo, adc_hi, n_slices, dev)
+
+    def terms():
         # the plain version's pre-ADC value of every term, (P, S, B, M, N)
         v_all = fused_pre_adc(x_parts.to(dev), g_pos.to(dev), g_neg.to(dev),
                               n_bits)
         bits = (None,) if n_bits is None else tuple(range(n_bits))
-        for pi in range(p):
+        for pi in range(x_parts.shape[1]):
             for s in range(n_slices):
                 lsb = adc_lsb(lo[s], hi[s], adc_bits)
                 for bi, b in enumerate(bits):
-                    v = v_all[pi, s, bi]
-                    t = ((v - lo[s]) / lsb).to(torch.float64)
-                    edge = lo[s].double() + (torch.floor(t) + 0.5) * lsb.double()
-                    near = (v.double() - edge).abs() <= EDGE_ULP * _spacing(
-                        v.abs()).double()
                     w = 2.0 ** ((0 if b is None else b) + cell_bits * s)
-                    step = scale * float(lsb) * w
-                    one_code = ((d - step).abs()
-                                <= FUSED_ULP * ulps + FUSED_CODES * scale)
-                    explained |= near & one_code
-    bad = ~explained
+                    yield (v_all[pi, s, bi], lo[s], lsb,
+                           scale * float(lsb) * w, None)
+
+    return _codes_check(y, y_plain, FUSED_CODES * scale, terms)
+
+
+def fused_mvm_parasitic_check(
+    y: torch.Tensor,          # (M, N) result under test
+    y_plain: torch.Tensor,    # (M, N) plain (or reference) result
+    x_parts: torch.Tensor,    # the operands both were computed from
+    g_pos: torch.Tensor,
+    g_neg: torch.Tensor,
+    r_hat,
+    adc_lo,
+    adc_hi,
+    scale,
+    *,
+    adc_bits: int,
+    cell_bits: int,
+    n_bits: int,
+) -> Dict[str, float]:
+    """Hold ``y`` against ``y_plain`` under the fused bound, the terms being
+    the per-(partition, slice) analog bit folds of the parasitic chain."""
+    dev = y_plain.device
+    scale = float(torch.as_tensor(scale).reshape(()))
+    n_slices = g_pos.shape[0]
+    lo, hi = _slice_ranges(adc_lo, adc_hi, n_slices, dev)
+
+    def terms():
+        v_all = parasitic_pre_adc(x_parts.to(dev), g_pos.to(dev),
+                                  g_neg.to(dev), r_hat, n_bits)
+        for pi in range(x_parts.shape[1]):
+            for s in range(n_slices):
+                lsb = adc_lsb(lo[s], hi[s], adc_bits)
+                w = 2.0 ** (cell_bits * s)
+                yield v_all[pi, s], lo[s], lsb, scale * float(lsb) * w, None
+
+    return _codes_check(y, y_plain, FUSED_CODES * scale, terms)
+
+
+def analog_mvm_check(
+    y: torch.Tensor,          # (M, N) code units under test
+    y_plain: torch.Tensor,    # (M, N) plain (or reference) result
+    x_parts: torch.Tensor,    # (M, P, rows) the operands
+    g_pos: torch.Tensor,      # (P, rows, N)
+    g_neg: torch.Tensor,
+    adc_lo,
+    adc_hi,
+    gain: float,
+    *,
+    adc_bits: int,
+    r_hat=None,               # parasitic level (legacy parasitic kernel)
+    n_bits: Optional[int] = None,
+    v_other: Optional[torch.Tensor] = None,
+) -> Dict[str, float]:
+    """Hold a legacy Design-A result (``r_hat`` None) or a legacy parasitic
+    one against ``y_plain``: within 2 ulp or 0.25 of ``gain``, one-code
+    flips (``gain * lsb``) only next to a rounding edge of a partition's
+    pre-ADC value.  ``v_other`` (P, M, N), the pre-ADC values on the side
+    of ``y`` where they were summed in another order, also explains a flip
+    where they lie across the edge from the plain value."""
+    dev = y_plain.device
+    lo, hi = _slice_ranges(adc_lo, adc_hi, 1, dev)
+    lsb = true_div(hi[0] - lo[0], 2 ** adc_bits - 1)
+
+    def terms():
+        x, gp, gm = x_parts.to(dev), g_pos.to(dev)[None], g_neg.to(dev)[None]
+        if r_hat is None:
+            v_all = fused_pre_adc(x, gp, gm, None)[:, 0, 0]
+        else:
+            v_all = parasitic_pre_adc(x, gp, gm, r_hat, n_bits)[:, 0]
+        for pi, v in enumerate(v_all):
+            yield (v, lo[0], lsb, float(gain) * float(lsb),
+                   None if v_other is None else v_other[pi])
+
+    return _codes_check(y, y_plain, FUSED_CODES * float(gain), terms)
+
+
+def bitline_check(i: torch.Tensor, i_plain: torch.Tensor) -> Dict[str, float]:
+    """Hold bit-line currents within ``BITLINE_ULP`` ulps of ``|I|``;
+    returns ``ok``, ``bad``, ``max_abs_err`` and ``max_ulp``."""
+    dev = i_plain.device
+    i = i.to(device=dev, dtype=torch.float32)
+    i_plain = i_plain.to(torch.float32)
+    d = (i - i_plain).abs()
+    ulps = _spacing(torch.maximum(i.abs(), i_plain.abs()))
+    bad = d > BITLINE_ULP * ulps
     rel = torch.where(d > 0, d / ulps, torch.zeros_like(d))
     return {
         "ok": not bool(bad.any()),
-        "flips": int((explained & ~tight).sum()),
         "bad": int(bad.sum()),
         "max_abs_err": float(d.max()) if d.numel() else 0.0,
         "max_ulp": float(rel.max()) if d.numel() else 0.0,

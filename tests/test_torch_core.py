@@ -209,20 +209,33 @@ def test_programming_noise_statistics():
 
 
 def test_unported_paths_raise():
+    """Drift and stuck-cell faults are still unported and raise.  Parasitic
+    bit-line resistance and the legacy ``use_pallas`` route are ported:
+    they return finite results of the right shape, the parasitic one away
+    from the ideal chain's (voltage sag moves the outputs), the legacy one
+    equal to the composed chain's (tests/test_torch_parasitics.py holds
+    both against the reference)."""
+    from repro_torch.core import calibrate as t_cal
+
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         TE.DriftModel(kind="power_law", nu=0.05)
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         TE.FaultModel(kind="stuck", rate=0.1)
     w = torch.as_tensor(_weights())
     x = torch.as_tensor(_acts())
-    par = dataclasses.replace(TA.design_a(), r_hat=1e-4)
-    with pytest.raises(NotImplementedError, match="parasitic"):
-        TA.analog_matmul(x, TA.program(w, par), par)
-    legacy = dataclasses.replace(TA.design_a(), use_pallas=True)
-    aw = TA.program(w, legacy)
-    with pytest.raises(NotImplementedError, match="use_pallas"):
-        TA.analog_matmul(x, aw, legacy, adc_lo=torch.zeros(1),
-                         adc_hi=torch.ones(1))
+    ideal = TA.design_a()
+    aw = TA.program(w, ideal)
+    lo, hi = t_cal.calibrate_adc_for_matmul(x, aw, ideal)
+    y_ideal = TA.analog_matmul(x, aw, ideal, adc_lo=lo, adc_hi=hi)
+    par = dataclasses.replace(ideal, r_hat=1e-3)
+    p_lo, p_hi = t_cal.calibrate_adc_for_matmul(x, aw, par)
+    y = TA.analog_matmul(x, aw, par, adc_lo=p_lo, adc_hi=p_hi)
+    assert y.shape == (6, 48) and bool(torch.isfinite(y).all())
+    assert not torch.equal(y, y_ideal)
+    legacy = dataclasses.replace(ideal, use_pallas=True)
+    y = TA.analog_matmul(x, aw, legacy, adc_lo=lo, adc_hi=hi)
+    assert y.shape == (6, 48) and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, y_ideal, rtol=1e-5, atol=1e-5)
 
 
 def test_fuse_signature_and_routing_match():

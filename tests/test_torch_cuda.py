@@ -5,12 +5,14 @@ on a machine with one (and nvcc) run
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The file imports torch and the port only, so it runs where JAX is not
-installed.  Bounds (``repro_torch.kernels.tolerance``): the fused MVM
-within 2 ulp or 0.25 of a dequant grid step, one-code ADC flips only where
-the pre-ADC value lies within 4 ulp of a rounding edge; flash decode within
-``4 ulp + kv_len * eps * max|v|``.  The grids (``tolerance.FUSED_GRID``,
-``tolerance.FLASH_GRID``) are those of ``tests/test_kernels.py``, shared with
-``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
+installed.  Bounds (``repro_torch.kernels.tolerance``): the fused MVM, the
+fused parasitic MVM and the legacy Design-A kernels within 2 ulp or 0.25 of
+a dequant grid step, one-code ADC flips only where the pre-ADC value lies
+within 4 ulp of a rounding edge; bit-line currents within 2 ulp of
+``|I|``; flash decode within ``4 ulp + kv_len * eps * max|v|``.  The grids
+(``tolerance.*_GRID``) are those of ``tests/test_kernels.py``, shared with
+``tests/test_torch_kernels.py``, ``tests/test_torch_parasitics.py`` and
+``chip_smoke.py``.
 """
 
 import pytest
@@ -19,8 +21,14 @@ import torch
 from repro_torch.kernels import fused as t_fused
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import tolerance
-from repro_torch.kernels.tolerance import (FLASH_GRID, FUSED_GRID, flash_case,
-                                           fused_case)
+from repro_torch.kernels import build
+from repro_torch.kernels.tolerance import (BITLINE_GRID, FLASH_GRID,
+                                           FUSED_GRID, FUSED_PARASITIC_GRID,
+                                           LEGACY_GAIN, LEGACY_GRID,
+                                           LEGACY_PARASITIC_GRID,
+                                           LEGACY_RANGE, bitline_case,
+                                           flash_case, fused_case,
+                                           fused_parasitic_case, legacy_case)
 
 
 def _ids(grid):
@@ -85,3 +93,135 @@ def test_fused_mvm_kernel_is_batch_invariant(cuda_device, n_bits):
         assert torch.equal(t_ops.fused_mvm(x[i:i + 1], gp, gm, **kw),
                            full[i:i + 1])
     assert torch.equal(t_ops.fused_mvm(x[5:21], gp, gm, **kw), full[5:21])
+
+
+def _on(dev, *arrays):
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,r", BITLINE_GRID, ids=_ids(BITLINE_GRID))
+def test_bitline_kernel_matches_plain(cuda_device, m, k, n, r):
+    x, g = _on(cuda_device, *bitline_case(m, k, n))
+    before = t_fused.LAUNCHES["bitline_mvm"]
+    got = t_ops.bitline_mvm(g, x, r)
+    want = t_ops.bitline_mvm(g, x, r, backend="oracle")
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["bitline_mvm"] == before + 1
+    res = tolerance.bitline_check(got, want)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_bitline_kernel_covers_every_array_in_one_launch(cuda_device):
+    """(S * P) arrays driven by the P partitions' planes, as the composed
+    chain calls it under use_pallas."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    g = torch.rand((6, 70, 45), generator=gen, device=cuda_device)
+    x = torch.sign(torch.randn((3, 21, 70), generator=gen,
+                               device=cuda_device))
+    before = t_fused.LAUNCHES["bitline_mvm"]
+    got = t_ops.bitline_mvm(g, x, 3e-4)
+    assert t_fused.LAUNCHES["bitline_mvm"] == before + 1
+    res = tolerance.bitline_check(got, t_ops.bitline_mvm(g, x, 3e-4,
+                                                         backend="oracle"))
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p,s,rows,n,r", FUSED_PARASITIC_GRID,
+                         ids=_ids(FUSED_PARASITIC_GRID))
+def test_fused_parasitic_kernel_matches_plain(cuda_device, m, p, s, rows, n,
+                                              r):
+    x, gp, gm, lo, hi = _on(cuda_device, *fused_parasitic_case(m, p, s, rows,
+                                                               n))
+    kw = dict(r_hat=r, adc_lo=lo, adc_hi=hi, adc_bits=8,
+              cell_bits=2 if s > 1 else 7, n_bits=7,
+              scale=torch.tensor(3e-4, device=cuda_device))
+    before = t_fused.LAUNCHES["fused_mvm_parasitic"]
+    y = t_ops.fused_mvm_parasitic(x, gp, gm, **kw)
+    y_ref = t_ops.fused_mvm_parasitic(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["fused_mvm_parasitic"] == before + 1
+    res = tolerance.fused_mvm_parasitic_check(
+        y, y_ref, x, gp, gm, r, lo, hi, kw["scale"], adc_bits=8,
+        cell_bits=kw["cell_bits"], n_bits=7)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p,rows,n", LEGACY_PARASITIC_GRID,
+                         ids=_ids(LEGACY_PARASITIC_GRID))
+def test_legacy_parasitic_kernel_matches_plain(cuda_device, m, p, rows, n):
+    x, gp, gm = _on(cuda_device, *legacy_case(m, p, rows, n))
+    lo, hi = (torch.tensor(v, device=cuda_device) for v in LEGACY_RANGE)
+    kw = dict(r_hat=1e-3, n_bits=7, adc_lo=lo, adc_hi=hi, adc_bits=8,
+              gain=LEGACY_GAIN)
+    before = t_fused.LAUNCHES["analog_bitline_diff"]
+    y = t_ops.analog_mvm_parasitic(x, gp, gm, **kw)
+    y_ref = t_ops.analog_mvm_parasitic(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["analog_bitline_diff"] == before + 1
+    res = tolerance.analog_mvm_check(y, y_ref, x, gp, gm, lo, hi, LEGACY_GAIN,
+                                     adc_bits=8, r_hat=1e-3, n_bits=7)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p,rows,n,adc_bits", LEGACY_GRID,
+                         ids=_ids(LEGACY_GRID))
+def test_legacy_kernel_matches_plain(cuda_device, m, p, rows, n, adc_bits):
+    x, gp, gm = _on(cuda_device, *legacy_case(m, p, rows, n, seed=m * 7 + p))
+    lo, hi = (torch.tensor(v, device=cuda_device) for v in LEGACY_RANGE)
+    kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=adc_bits, gain=LEGACY_GAIN)
+    before = t_fused.LAUNCHES["analog_mvm_diff"]
+    y = t_ops.analog_mvm(x, gp, gm, **kw)
+    y_ref = t_ops.analog_mvm(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["analog_mvm_diff"] == before + 1
+    res = tolerance.analog_mvm_check(y, y_ref, x, gp, gm, lo, hi, LEGACY_GAIN,
+                                     adc_bits=adc_bits)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fused_mvm_parasitic",
+                                   "analog_mvm_parasitic", "analog_mvm"])
+def test_new_mvm_kernels_are_batch_invariant(cuda_device, which):
+    """Each output row is the same bits whichever rows share the launch
+    (M = 40 spans three 16-row tiles of the legacy kernel)."""
+    x, gp, gm, lo, hi = _on(cuda_device, *fused_case(40, 2, 1, 70, 45,
+                                                     seed=3))
+    x = x.clamp(-127, 127)
+    if which == "fused_mvm_parasitic":
+        kw = dict(r_hat=1e-4, adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=7,
+                  n_bits=7, scale=torch.tensor(3e-4, device=cuda_device))
+    else:
+        gp, gm = gp[0], gm[0]
+        kw = dict(adc_lo=lo[0], adc_hi=hi[0], adc_bits=8, gain=LEGACY_GAIN)
+        if which == "analog_mvm_parasitic":
+            kw.update(r_hat=1e-4, n_bits=7)
+    f = getattr(t_ops, which)
+    full = f(x, gp, gm, **kw)
+    for i in (0, 15, 16, 39):
+        assert torch.equal(f(x[i:i + 1], gp, gm, **kw), full[i:i + 1])
+    assert torch.equal(f(x[5:21], gp, gm, **kw), full[5:21])
+
+
+@pytest.mark.cuda
+def test_r_hat_and_gain_are_runtime_arguments(cuda_device):
+    """A sweep over r_hat (and gain) runs the built libraries as they are:
+    nothing rebuilds, and each level gives its own currents."""
+    x, gp, gm = _on(cuda_device, *legacy_case(4, 2, 33, 9, seed=1))
+    lo, hi = (torch.tensor(v, device=cuda_device) for v in LEGACY_RANGE)
+    t_ops.analog_mvm_parasitic(x, gp, gm, r_hat=1e-5, n_bits=7, adc_lo=lo,
+                               adc_hi=hi, adc_bits=8, gain=1.0)
+    built = dict(build.PTXAS_REPORT)
+    outs = [t_ops.analog_mvm_parasitic(x, gp, gm, r_hat=r, n_bits=7,
+                                       adc_lo=lo, adc_hi=hi, adc_bits=8,
+                                       gain=g)
+            for r, g in ((1e-5, 2.0), (1e-3, 2.0), (1e-3, 3.0))]
+    torch.cuda.synchronize()
+    assert build.PTXAS_REPORT == built
+    assert not torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[1], outs[2])
