@@ -41,7 +41,26 @@ lines:
    must equal ``decode_lm``; one prefill's logits must agree with the same
    pack on the legacy kernels' plain versions, and the bit-line kernel is
    held against its plain version, and timed, on one call of each shape
-   the calibration gave it (its times summed over one calibration).
+   the calibration gave it (its times summed over one calibration);
+6. path PG — paged serving with prefix sharing: the main path's programmed
+   and calibrated pack served through ``PagedServeRuntime(page_size=8,
+   max_slots=4, max_len=32)``, the main path's five requests and three
+   that open with the 24-token prompt's first 16 tokens (two full pages);
+   ``backend="gather"`` must equal the dense ``ServeRuntime`` token for
+   token, ``backend="kernel"`` must equal ``decode_lm`` but at near ties,
+   hit the prefix cache through ``prefill_cached`` and launch the
+   paged-attention kernel once per layer per decode step (and the
+   flash-decode kernel never); its decode step is timed at 4 rows.  The
+   paged-attention kernel is held against its plain version on
+   ``tolerance.PAGED_GRID`` and at the served shape, against the
+   flash-decode kernel on the gathered view (to the bit), and timed at the
+   served shape and at 4 rows x 2048 positions;
+7. Design D — no serving path reaches the bit-serial kernel, so its op
+   entry point (``ops.analog_mvm_bitserial``) is driven once at each of
+   wq, w_gate, w_down and the head of the main path's pack (slice 0 of its
+   conductances, 4 quantized activation rows, 7 bits), counts reset just
+   before and read just after; it is held against its plain version on
+   ``tolerance.BITSERIAL_GRID`` and at those four sites, and timed there.
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON; the
@@ -87,7 +106,11 @@ PARASITIC_REPLACES = "src/repro/kernels/fused.py:282"
 BITLINE_REPLACES = "src/repro/kernels/bitline.py:90"
 BL_DIFF_REPLACES = "src/repro/kernels/bitline.py:159"
 MVM_DIFF_REPLACES = "src/repro/kernels/analog_mvm.py:123"
+PAGED_REPLACES = "src/repro/kernels/paged.py:111"   # paged_attention_pallas
+# analog_mvm_bitserial_pallas
+BITSERIAL_REPLACES = "src/repro/kernels/analog_mvm.py:141"
 R_HAT = 1e-4          # the middle of the paper's Fig. 19 axis
+PAGE_SIZE = 8         # path PG's page (max_len 32 = 4 pages per slot)
 
 
 def card_line() -> str:
@@ -508,6 +531,129 @@ def bitline_at_calibration(torch, ops, tol, seen: dict, r_hat) -> dict:
     return tot
 
 
+def paged_work(q, k_pages, ptab, kv_len):
+    """(bytes, operations) of one paged-attention call: q, the valid
+    positions' K and V, the block table and fills read once, the float32
+    output written once; 4 hd + 4 operations per (position, query head)."""
+    b, h, hd = q.shape
+    valid = int(kv_len.sum())
+    kv = k_pages.shape[2]
+    return ((4 * q.numel() + 2 * valid * kv * hd * k_pages.element_size()
+             + 4 * ptab.numel() + 4 * b + 4 * b * h * hd),
+            valid * h * (4 * hd + 4))
+
+
+def paged_checks(torch, ops, tol, cfg, n_layers: int) -> dict:
+    """The paged-attention kernel: against its plain version on the CPU
+    test grid and at the served shape, against the flash-decode kernel on
+    the gathered view (bitwise), and timed at the served shape (4 rows,
+    bf16 pool, page 8, 4 pages a row) and at 4 rows x 2048 positions (page
+    16, a shuffled table), each beside its plain version, its bound and
+    ``scaled_dot_product_attention`` over the gathered view."""
+    worst = 0.0
+
+    def on_card(case, seed):
+        b, h, kv, hd, ps, npg, pool_dtype = case
+        q, k, v, ptab, kv_len = (torch.as_tensor(a, device=DEVICE) for a in
+                                 tol.paged_case(b, h, kv, hd, ps, npg, seed))
+        dt = getattr(torch, pool_dtype)
+        return q, k.to(dt), v.to(dt), ptab, kv_len
+
+    def gathered(pool, ptab):
+        b, npg = ptab.shape
+        _, ps, kv, hd = pool.shape
+        return pool[ptab.long()].reshape(b, npg * ps, kv, hd).contiguous()
+
+    def hold(what, q, k, v, ptab, kv_len):
+        out = ops.paged_attention(q, k, v, ptab, kv_len)
+        ref = ops.paged_attention(q, k, v, ptab, kv_len, backend="oracle")
+        flash = ops.flash_attention_decode(q, gathered(k, ptab),
+                                           gathered(v, ptab), kv_len)
+        torch.cuda.synchronize()
+        r = tol.paged_attention_check(out, ref, v, ptab, kv_len)
+        if not r["ok"] or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"paged_attention {what} outside the bound: "
+                                 f"{r}")
+        if not torch.equal(out, flash):
+            raise AssertionError(f"paged_attention {what} != flash_decode on "
+                                 f"the gathered view")
+        return r["max_abs_err"]
+
+    for case in tol.PAGED_GRID:
+        worst = max(worst, hold(f"grid case {case}", *on_card(case, 0)))
+    b, h, kv, hd = 4, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    served = on_card((b, h, kv, hd, PAGE_SIZE, MAX_LEN // PAGE_SIZE,
+                      cfg.dtype), SEED + 60)
+    worst = max(worst, hold("at the served shape", *served))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 61)
+    n_long, ps_long = 2048, 16
+    npg = n_long // ps_long
+    dt = getattr(torch, cfg.dtype)
+    pool_shape = (1 + b * npg, ps_long, kv, hd)
+    long = (torch.randn((b, h, hd), generator=gen, device=DEVICE),
+            torch.randn(pool_shape, generator=gen, device=DEVICE).to(dt),
+            torch.randn(pool_shape, generator=gen, device=DEVICE).to(dt),
+            (1 + torch.randperm(b * npg, generator=gen, device=DEVICE))
+            .reshape(b, npg).to(torch.int32),
+            torch.full((b,), n_long, dtype=torch.int32, device=DEVICE))
+    worst = max(worst, hold("at 4 x 2048 positions", *long))
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, (q, k, v, ptab, kv_len) in (("served", served), ("long", long)):
+        ms = cuda_time(lambda: ops.paged_attention(q, k, v, ptab, kv_len),
+                       reps=50)
+        plain = cuda_time(lambda: ops.paged_attention(
+            q, k, v, ptab, kv_len, backend="oracle"), reps=10)
+        gk = gathered(k, ptab).permute(0, 2, 1, 3).contiguous()
+        gv = gathered(v, ptab).permute(0, 2, 1, 3).contiguous()
+        qs = q[:, :, None, :].to(gk.dtype)
+        mask = (torch.arange(gk.shape[2], device=DEVICE)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        lib = cuda_time(lambda: sdpa(qs, gk, gv, attn_mask=mask), reps=50)
+        b_ms, b_by = bound_ms(*paged_work(q, k, ptab, kv_len))
+        rows[name] = (ms, plain, lib)
+        print(f"paged_attention {name}: B={q.shape[0]} H={h} KV={kv} hd={hd} "
+              f"page={k.shape[1]} NP={ptab.shape[1]} "
+              f"{str(k.dtype).split('.')[-1]} pool fills={kv_len.tolist()}  "
+              f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {b_ms:.5f} ms "
+              f"({b_by})  sdpa(gathered view) {lib:.4f} ms", flush=True)
+    print(f"paged_attention: {len(tol.PAGED_GRID)} grid cases, the served "
+          f"shape and 4 x 2048 positions within the bound and equal to "
+          f"flash_decode on the gathered view; max_abs_err {worst:.3e}",
+          flush=True)
+    ms, plain, lib = rows["served"]
+    q, k, _, ptab, kv_len = served
+    step = bound_ms(*(x * n_layers for x in paged_work(q, k, ptab, kv_len)))
+    return {"ms": ms * n_layers, "plain_ms": plain * n_layers,
+            "bound_ms": step[0], "bound_by": step[1],
+            "library_ms": lib * n_layers, "max_abs_err": worst}
+
+
+def check_bitserial_grid(torch, ops, tol) -> float:
+    """The bit-serial kernel against its plain version on the CPU test
+    grid; returns the largest error."""
+    worst = 0.0
+    lo, hi = (torch.tensor(v, device=DEVICE) for v in tol.BITSERIAL_RANGE)
+    for case in tol.BITSERIAL_GRID:
+        m, p, rows, n, nb = case
+        x, gp, gm = (torch.as_tensor(a, device=DEVICE)
+                     for a in tol.bitserial_case(m, p, rows, n, nb))
+        kw = dict(n_bits=nb, adc_lo=lo, adc_hi=hi, adc_bits=8,
+                  gain=tol.BITSERIAL_GAIN)
+        r = tol.bitserial_check(
+            ops.analog_mvm_bitserial(x, gp, gm, **kw),
+            ops.analog_mvm_bitserial(x, gp, gm, backend="oracle", **kw),
+            x, gp, gm, lo, hi, tol.BITSERIAL_GAIN, adc_bits=8, n_bits=nb)
+        if not r["ok"]:
+            raise AssertionError(f"analog_mvm_bitserial grid case {case} "
+                                 f"outside the bound: {r}")
+        worst = max(worst, r["max_abs_err"])
+    torch.cuda.synchronize()
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -817,6 +963,205 @@ def path_p2(torch, ops, tol, cfg, params, pack, reqs, calib, kern_fused,
     return counts, bl
 
 
+def path_pg(torch, cfg, params, pack, reqs, kern_fused):
+    """Path PG: the main path's pack served through ``PagedServeRuntime``
+    with prefix sharing (gather and kernel backends) on the main path's
+    requests and three that share the 24-token prompt's first two pages.
+    Returns (the kernel run's launch counts, its stats, the decode step's
+    seconds)."""
+    import numpy as np
+
+    from repro_torch.serve import PagedServeRuntime
+
+    rng = np.random.default_rng(SEED + 3)
+    head = reqs[3][0][:2 * PAGE_SIZE]
+    pg_reqs = list(reqs) + [
+        (np.concatenate([head, rng.integers(0, cfg.vocab, size=n - len(head))])
+         .astype(np.int32), m) for n, m in ((20, 6), (18, 8), (22, 4))]
+    if any(p.size + m > MAX_LEN for p, m in pg_reqs):
+        raise AssertionError("a path PG request exceeds max_len")
+    dense, _, _ = serve_requests(torch, cfg, params, pack, pg_reqs, "stream")
+
+    def serve_paged(backend):
+        rt = PagedServeRuntime(cfg, params, pack=pack, page_size=PAGE_SIZE,
+                               max_slots=4, max_len=MAX_LEN, backend=backend)
+        cached = []
+        prefill_cached = rt._api.prefill_cached
+
+        def counting(*a, **kw):
+            cached.append(kw["ctx_lens"].shape[0])
+            return prefill_cached(*a, **kw)
+
+        rt._api = dataclasses.replace(rt._api, prefill_cached=counting)
+        uids = [rt.submit(p, max_new_tokens=m) for p, m in pg_reqs]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = rt.run()
+        torch.cuda.synchronize()
+        rt.check()
+        return ([outs[u] for u in uids], time.perf_counter() - t, rt.stats,
+                len(cached))
+
+    gather, _, g_stats, _ = serve_paged("gather")
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(gather, dense))
+    print(f"path PG (gather): {same}/{len(pg_reqs)} requests token for token "
+          f"equal to the dense ServeRuntime; prefix hits "
+          f"{g_stats['prefix_hits']}", flush=True)
+    if same != len(pg_reqs):
+        raise AssertionError("paged (gather) tokens != dense ServeRuntime")
+
+    kern_fused.reset_launch_counts()
+    outs, wall, stats, n_cached = serve_paged("kernel")
+    counts = dict(kern_fused.LAUNCHES)
+    steps = stats["decode_steps"]
+    print(f"path PG (kernel): served {len(pg_reqs)} requests "
+          f"({stats['tokens_out']} tokens, {stats['prefill_calls']} prefills, "
+          f"{n_cached} through prefill_cached, {steps} decode steps) in "
+          f"{wall:.3f} s; prefix hits {stats['prefix_hits']} "
+          f"({stats['prefix_tokens_reused']} tokens reused); launches "
+          f"{counts}", flush=True)
+    if stats["prefix_hits"] < 1 or n_cached < 1:
+        raise AssertionError("path PG never hit the prefix cache")
+    if counts["paged_attention"] != cfg.n_layers * steps \
+            or counts["flash_decode"] or counts["fused_mvm"] == 0:
+        raise AssertionError(f"path PG launches: paged_attention != layers x "
+                             f"steps, or flash_decode ran: {counts}")
+    ties = 0
+    for (p, m), out, ref in zip(pg_reqs, outs,
+                                decode_refs(torch, cfg, params, pack, pg_reqs)):
+        if out.shape != (m,) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"bad completion {out} for budget {m}")
+        if (out != ref).any():
+            if not near_tie(torch, cfg, params, pack, p, ref, out):
+                raise AssertionError(f"paged (kernel) runtime left decode_lm "
+                                     f"away from a near tie: {out} vs {ref}")
+            ties += 1
+    print(f"path PG (kernel) vs decode_lm: {len(pg_reqs) - ties}/"
+          f"{len(pg_reqs)} requests identical, {ties} near-tie departures",
+          flush=True)
+    step = paged_step_s(torch, cfg, params, pack)
+    return counts, stats, step
+
+
+def paged_step_s(torch, cfg, params, pack) -> float:
+    """Median seconds of one paged decode step (``decode_step_paged``,
+    kernel backend), 4 rows decoding together over the page pool (steps
+    3..12 of 12), as :func:`decode_step_s` times the dense step."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import PagedServeRuntime
+
+    rng = np.random.default_rng(SEED + 4)
+    rt = PagedServeRuntime(cfg, params, pack=pack, page_size=PAGE_SIZE,
+                           max_slots=4, max_len=MAX_LEN, backend="kernel")
+    for _ in range(4):
+        rt.submit(rng.integers(0, cfg.vocab, size=3).astype(np.int32),
+                  max_new_tokens=MAX_LEN - 3)
+    rt.step()                      # prefill and the first decode step
+    st = rt._state
+    cache = {"pool": st.layers, "len": st.length,
+             "ptab": torch.as_tensor(rt._ptab, device=DEVICE)}
+    tok = st.tok[:, None]
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = T.decode_step_paged(cfg, params, tok, cache,
+                                            pack=pack, backend="kernel")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return sorted(times[2:])[len(times[2:]) // 2]
+
+
+def bitserial_full_width(torch, ops, tol, cfg, pack, kern_fused):
+    """Design D at the main path's full-width sites: slice 0 of the pack's
+    differential conductances at wq, w_gate, w_down (layer 0) and the head,
+    4 activation rows quantized as the main path quantizes them, 7 bits,
+    the ADC range from the plain version's per-bit pre-ADC values.  The op
+    entry point is driven once per site with the counts reset just before
+    and read just after; then each site is held against its plain version
+    and timed beside its plain version, its bound and ``torch.matmul`` of
+    the 7 stacked bit planes."""
+    from repro_torch.core.adc import range_from_samples
+    from repro_torch.core.quant import quantize_acts
+    from repro_torch.kernels.fused import _bit_plane
+    from repro_torch.kernels.ref import fused_pre_adc
+
+    nb, m = 7, 4
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 300)
+    sites = []
+    for name in ("wq", "w_gate", "w_down", "head"):
+        if name == "head":
+            aw, spec = pack.head, pack.head_spec
+        else:
+            aw, spec = pack.layer_weights[name].layer(0), pack.site_spec(name)
+        gp, gm = aw.g_pos[0], aw.g_neg[0]                 # (P, rows, N)
+        p, rows, _ = gp.shape
+        x = torch.randn((m, aw.k), generator=gen, device=DEVICE)
+        xq = quantize_acts(x, spec.input_bits)
+        x_parts = torch.nn.functional.pad(xq.values, (0, p * rows - aw.k)) \
+            .reshape(m, p, rows).contiguous()
+        lo, hi = range_from_samples(fused_pre_adc(x_parts, gp[None], gm[None],
+                                                  nb))
+        mp = spec.mapping
+        gain = (mp.levels_per_cell - 1) / (1.0 - mp.g_min)
+        sites.append((name, x_parts, gp, gm, dict(
+            n_bits=nb, adc_lo=lo.reshape(1), adc_hi=hi.reshape(1),
+            adc_bits=spec.adc.bits, gain=gain)))
+
+    kern_fused.reset_launch_counts()
+    outs = [ops.analog_mvm_bitserial(x, gp, gm, **kw)
+            for _, x, gp, gm, kw in sites]
+    torch.cuda.synchronize()
+    launches = kern_fused.LAUNCHES["analog_mvm_bitserial"]
+    if launches != len(sites):
+        raise AssertionError(f"analog_mvm_bitserial launched {launches} times "
+                             f"for {len(sites)} calls")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+           "flops": 0.0, "max_abs_err": 0.0, "launches": launches}
+    for (name, x, gp, gm, kw), y in zip(sites, outs):
+        y_ref = ops.analog_mvm_bitserial(x, gp, gm, backend="oracle", **kw)
+        torch.cuda.synchronize()
+        r = tol.bitserial_check(y, y_ref, x, gp, gm, kw["adc_lo"],
+                                kw["adc_hi"], kw["gain"],
+                                adc_bits=kw["adc_bits"], n_bits=nb)
+        if not r["ok"] or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"analog_mvm_bitserial at {name} outside "
+                                 f"the bound: {r}")
+        del y_ref
+        ms = cuda_time(lambda: ops.analog_mvm_bitserial(x, gp, gm, **kw),
+                       reps=5, warmup=1)
+        plain = cuda_time(lambda: ops.analog_mvm_bitserial(
+            x, gp, gm, backend="oracle", **kw), reps=2, warmup=1)
+        p, rows, n = gp.shape
+        sign, mag = torch.sign(x), x.abs()
+        planes = torch.cat([_bit_plane(mag, sign, b)
+                            for b in range(nb)], dim=0)    # (7 M, P, rows)
+        planes = planes.permute(1, 0, 2).contiguous()
+        gd = gp - gm
+        lib = cuda_time(lambda: torch.matmul(planes, gd), reps=10)
+        del planes, gd
+        n_bytes = 4 * (x.numel() + gp.numel() + gm.numel() + 2 + m * n)
+        n_flops = 2 * m * nb * p * rows * n
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        print(f"analog_mvm_bitserial {name} (M={m} P={p} rows={rows} N={n} "
+              f"n_bits={nb}): kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by})  torch.matmul(7 stacked planes) "
+              f"{lib:.4f} ms  max_abs_err {r['max_abs_err']:.3e}  flips "
+              f"{r['flips']}", flush=True)
+        tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
+        tot["ms"] += ms
+        tot["plain_ms"] += plain
+        tot["library_ms"] += lib
+        tot["bytes"] += n_bytes
+        tot["flops"] += n_flops
+        torch.cuda.empty_cache()
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["flops"])
+    return tot
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -871,6 +1216,13 @@ def main() -> int:
     par = parasitic_full_width(torch, A, E, ops, tol, cfg, args.layers)
     print(f"parasitic/legacy full-width checks in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    pa = paged_checks(torch, ops, tol, cfg, args.layers)
+    bs_grid = check_bitserial_grid(torch, ops, tol)
+    print(f"analog_mvm_bitserial CPU test grid on the card: "
+          f"{len(tol.BITSERIAL_GRID)} cases within the bound, max_abs_err "
+          f"{bs_grid:.3e}; paged and bit-serial checks in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
 
     cfg, step_s, counts, params, pack, reqs, calib = main_path(
         torch, args, kern_fused)
@@ -887,6 +1239,17 @@ def main() -> int:
     p2_ideal, _ = path_p2(torch, ops, tol, cfg, params, pack, short, calib,
                           kern_fused, 0.0)
     print(f"path P2 in {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    pg_counts, pg_stats, pg_step = path_pg(torch, cfg, params, pack, reqs,
+                                           kern_fused)
+    print(f"path PG decode step (4 rows, {cfg.n_layers} layers, paged "
+          f"attention kernel): {pg_step * 1e3:.3f} ms, {4 / pg_step:.1f} "
+          f"tokens/s on {card}; path PG in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    bs = bitserial_full_width(torch, ops, tol, cfg, pack, kern_fused)
+    print(f"Design D at four full-width sites in {time.perf_counter() - t:.1f}"
+          f" s", flush=True)
     del pack
 
     kernels = [
@@ -903,6 +1266,12 @@ def main() -> int:
          "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": PAGED_REPLACES, "launches": pg_counts["paged_attention"],
+         "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
+         "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
+         "bound_by": pa["bound_by"], "library_ms": pa["library_ms"]},
     ]
     par["bitline_mvm"] = bl
     for name, src, replaces, launches in (
@@ -923,6 +1292,13 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "analog_mvm_bitserial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_mvm.cu",
+        "replaces": BITSERIAL_REPLACES, "launches": bs["launches"],
+        "max_abs_err": max(bs["max_abs_err"], bs_grid), "ms": bs["ms"],
+        "plain_ms": bs["plain_ms"], "bound_ms": bs["bound_ms"],
+        "bound_by": bs["bound_by"], "library_ms": bs["library_ms"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The legacy Design-A kernel's launcher and epilogue (counterpart of
-``repro.kernels.analog_mvm``).
+"""The legacy Design-A and Design-D kernels' launchers and epilogue
+(counterpart of ``repro.kernels.analog_mvm``).
 
 :func:`analog_mvm_diff_cuda` launches ``repro_analog_mvm_diff`` of
 ``csrc/fused_mvm.cu`` (the fused kernel with the legacy epilogue), replacing
@@ -9,8 +9,16 @@ order), one value-unit ADC, ``* gain``, and the sum over partitions,
 returning code units.  It checks its operands, allocates the output,
 launches on PyTorch's current stream, raises if the launch was refused, and
 adds one to its count in ``kernels.fused.LAUNCHES``.  The plain version is
-``kernels.ref.analog_mvm_diff``; :func:`_adc_epilogue` is the legacy
-epilogue both share with the parasitic legacy kernel's plain version.
+``kernels.ref.analog_mvm_diff``.
+
+:func:`analog_mvm_bitserial_cuda` launches ``repro_analog_mvm_bitserial``
+of the same source (bit-serial accumulation with the legacy epilogue),
+replacing ``repro.kernels.analog_mvm.analog_mvm_bitserial_pallas``: per
+K-partition and signed input bit plane one dot and one value-unit ADC, the
+``2**b`` shift-add, ``* gain``, the sum over partitions; its plain version
+is ``kernels.ref.analog_mvm_bitserial``.
+
+:func:`_adc_epilogue` is the legacy epilogue the plain versions share.
 """
 
 from __future__ import annotations
@@ -20,11 +28,14 @@ import ctypes
 import torch
 
 from repro_torch.core.quant import true_div
-from repro_torch.kernels.fused import (LAUNCHES, _check_launch, _lib,
-                                       _mvm_shapes, _ptr, _scalar, _stream)
+from repro_torch.kernels.fused import (LAUNCHES, MAX_BITS, _check_launch,
+                                       _lib, _mvm_shapes, _ptr, _scalar,
+                                       _stream)
 
 _DIFF_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                              ctypes.c_void_p])
+_BITSERIAL_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _adc_epilogue(v, lo, hi, bits: int):
@@ -62,4 +73,37 @@ def analog_mvm_diff_cuda(
             _ptr(y), m, p, rows, n, int(adc_bits), float(gain), _stream(dev))
     _check_launch(rc, "analog_mvm_diff")
     LAUNCHES["analog_mvm_diff"] += 1
+    return y
+
+
+def analog_mvm_bitserial_cuda(
+    x_parts: torch.Tensor,   # (M, P, rows) float32, integer-valued signed
+    g_pos: torch.Tensor,     # (P, rows, N) float32
+    g_neg: torch.Tensor,     # (P, rows, N) float32
+    adc_lo: torch.Tensor,    # scalar / (1,) calibrated range
+    adc_hi: torch.Tensor,
+    *,
+    n_bits: int,
+    adc_bits: int,
+    gain: float,
+) -> torch.Tensor:
+    """Launch the Design-D bit-serial kernel; returns (M, N) code units."""
+    dev, m, p, rows, n = _mvm_shapes(x_parts, g_pos, g_neg, sliced=False)
+    if not 1 <= n_bits <= MAX_BITS:
+        raise ValueError(f"analog_mvm_bitserial takes n_bits in "
+                         f"1..{MAX_BITS}, got {n_bits}")
+    if not 1 <= adc_bits <= 24:
+        raise ValueError(f"adc_bits={adc_bits} out of the kernel's range")
+    lo, hi = _scalar(adc_lo, dev), _scalar(adc_hi, dev)
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return y
+    lib = _lib("fused_mvm", ("repro_analog_mvm_bitserial",), _BITSERIAL_ARGS)
+    with torch.cuda.device(dev):
+        rc = lib.repro_analog_mvm_bitserial(
+            _ptr(x_parts), _ptr(g_pos), _ptr(g_neg), _ptr(lo), _ptr(hi),
+            _ptr(y), m, p, rows, n, int(n_bits), int(adc_bits), float(gain),
+            _stream(dev))
+    _check_launch(rc, "analog_mvm_bitserial")
+    LAUNCHES["analog_mvm_bitserial"] += 1
     return y

@@ -1,5 +1,5 @@
-// Single-token decode attention over the dense per-slot KV cache, for
-// Hopper (sm_90a).
+// Single-token decode attention over the dense per-slot KV cache or a paged
+// KV pool, for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/fused.py::flash_attention_pallas (kernel body
 // _flash_kernel): GQA decode attention of one query token per batch row
@@ -28,6 +28,23 @@
 //   registers and one shared-memory exchange, inside one block.
 // * K and V may be float32 or bfloat16 (the cache's dtype); they are
 //   widened to float32 in registers, as the reference widens them.
+//
+// The same kernel, with the PagedRows addressing policy, also replaces
+// src/repro/kernels/paged.py::paged_attention_pallas (kernel body
+// _paged_kernel): the K/V of position t of row b live at
+// pool[ptab[b, t / ps], t % ps] of a (P, ps, KV, hd) pool, read through the
+// (B, NP) block table in global memory.  Only the address of a position
+// changes (DenseRows vs PagedRows), never the arithmetic or its order, so a
+// paged call equals the dense kernel on the gathered view pool[ptab] to the
+// bit.  What bounds it is the same: the valid positions' K and V bytes.
+// The pool is read in its own dtype: the reference's wrapper casts the
+// whole pool to float32 before its kernel, a copy of every page in every
+// layer of every step, which this kernel never makes.  Table entries past
+// a row's fill, and so the sink page 0 that pads them, are never read (a
+// position at or beyond kv_len[b] is never visited), and a page id outside
+// [0, P) is clamped, so no table can make the kernel read outside the pool.
+// page_size == 1 needs no special case here (the reference canonicalizes
+// it for its compiler; the plain version keeps that).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,14 +62,34 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T>
+// Where position t of batch row b lives: the index of its (KV, hd) row in
+// the K/V array, and the number of positions a row can hold.
+struct DenseRows {               // k, v: (B, S, KV, hd)
+  int S;
+  __device__ __forceinline__ int capacity() const { return S; }
+  __device__ __forceinline__ size_t row(int b, int t) const {
+    return (size_t)b * S + t;
+  }
+};
+
+struct PagedRows {               // k, v: (P, ps, KV, hd) pool
+  const int* ptab;               // (B, NP) block table
+  int NP, ps, P;
+  __device__ __forceinline__ int capacity() const { return NP * ps; }
+  __device__ __forceinline__ size_t row(int b, int t) const {
+    const int page = min(max(ptab[(size_t)b * NP + t / ps], 0), P - 1);
+    return (size_t)page * ps + t % ps;
+  }
+};
+
+template <typename T, typename Rows>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const float* __restrict__ q,     // (B, H, hd)
-                    const T* __restrict__ k,         // (B, S, KV, hd)
-                    const T* __restrict__ v,         // (B, S, KV, hd)
+                    const T* __restrict__ k,         // rows of (KV, hd)
+                    const T* __restrict__ v,         // rows of (KV, hd)
                     const int* __restrict__ kv_len,  // (B,)
                     float* __restrict__ out,         // (B, H, hd)
-                    int S, int H, int KV, int hd, float scale) {
+                    Rows rows, int H, int KV, int hd, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, kh = blockIdx.y;
   const int g = H / KV;
@@ -68,18 +105,19 @@ flash_decode_kernel(const float* __restrict__ q,     // (B, H, hd)
   }
   __syncthreads();
 
-  const int len = min(kv_len[b], S);
+  const int len = min(kv_len[b], rows.capacity());
   const size_t row_stride = (size_t)KV * hd;
-  const T* kb = k + (size_t)b * S * row_stride + (size_t)kh * hd;
-  const T* vb = v + (size_t)b * S * row_stride + (size_t)kh * hd;
+  // offset of this KV head's hd elements at position t
+  auto at = [&](int t) { return rows.row(b, t) * row_stride + (size_t)kh * hd; };
 
-  // logits of the group's heads at position t, identical in both passes
-  auto logits = [&](int t, float (&s)[kMaxG]) {
+  // logits of the group's heads at the position whose K starts at kt,
+  // identical in both passes
+  auto logits = [&](const T* kt, float (&s)[kMaxG]) {
     float kr[kMaxDl];
 #pragma unroll
     for (int j = 0; j < kMaxDl; ++j) {
       const int d = lane + 32 * j;
-      kr[j] = d < hd ? widen(kb[(size_t)t * row_stride + d]) : 0.f;
+      kr[j] = d < hd ? widen(kt[d]) : 0.f;
     }
 #pragma unroll
     for (int gi = 0; gi < kMaxG; ++gi) {
@@ -104,7 +142,7 @@ flash_decode_kernel(const float* __restrict__ q,     // (B, H, hd)
   for (int gi = 0; gi < kMaxG; ++gi) mw[gi] = kNegInf;
   for (int t = warp; t < len; t += kWarps) {
     float s[kMaxG];
-    logits(t, s);
+    logits(k + at(t), s);
 #pragma unroll
     for (int gi = 0; gi < kMaxG; ++gi)
       if (gi < g) mw[gi] = fmaxf(mw[gi], s[gi]);
@@ -129,13 +167,14 @@ flash_decode_kernel(const float* __restrict__ q,     // (B, H, hd)
     for (int j = 0; j < kMaxDl; ++j) aw[gi][j] = 0.f;
   }
   for (int t = warp; t < len; t += kWarps) {
+    const size_t off = at(t);
     float s[kMaxG];
-    logits(t, s);
+    logits(k + off, s);
     float vr[kMaxDl];
 #pragma unroll
     for (int j = 0; j < kMaxDl; ++j) {
       const int d = lane + 32 * j;
-      vr[j] = d < hd ? widen(vb[(size_t)t * row_stride + d]) : 0.f;
+      vr[j] = d < hd ? widen(v[off + d]) : 0.f;
     }
 #pragma unroll
     for (int gi = 0; gi < kMaxG; ++gi) {
@@ -173,35 +212,57 @@ flash_decode_kernel(const float* __restrict__ q,     // (B, H, hd)
   }
 }
 
-template <typename T>
-int launch(const float* q, const T* k, const T* v, const int* kv_len,
-           float* out, int B, int S, int H, int KV, int hd, float scale,
+template <typename T, typename Rows>
+int launch(const float* q, const void* k, const void* v, const int* kv_len,
+           float* out, Rows rows, int B, int H, int KV, int hd, float scale,
            void* stream) {
   const int g = H / KV;
   const size_t smem = sizeof(float) * ((size_t)g * hd + 2 * kWarps * g +
                                        (size_t)kWarps * g * hd);
   dim3 grid(B, KV);
-  flash_decode_kernel<T><<<grid, kWarps * 32, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, kv_len, out, S, H, KV, hd, scale);
+  flash_decode_kernel<T, Rows><<<grid, kWarps * 32, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      q, static_cast<const T*>(k), static_cast<const T*>(v), kv_len, out,
+      rows, H, KV, hd, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Both entries return cudaGetLastError() after the launch.
-extern "C" int repro_flash_decode_f32(const float* q, const float* k,
-                                      const float* v, const int* kv_len,
+// Every entry returns cudaGetLastError() after the launch.
+extern "C" int repro_flash_decode_f32(const float* q, const void* k,
+                                      const void* v, const int* kv_len,
                                       float* out, int B, int S, int H, int KV,
                                       int hd, float scale, void* stream) {
-  return launch<float>(q, k, v, kv_len, out, B, S, H, KV, hd, scale, stream);
+  return launch<float>(q, k, v, kv_len, out, DenseRows{S}, B, H, KV, hd,
+                       scale, stream);
 }
 
 extern "C" int repro_flash_decode_bf16(const float* q, const void* k,
                                        const void* v, const int* kv_len,
                                        float* out, int B, int S, int H, int KV,
                                        int hd, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, static_cast<const __nv_bfloat16*>(k),
-                               static_cast<const __nv_bfloat16*>(v), kv_len,
-                               out, B, S, H, KV, hd, scale, stream);
+  return launch<__nv_bfloat16>(q, k, v, kv_len, out, DenseRows{S}, B, H, KV,
+                               hd, scale, stream);
+}
+
+// k_pages, v_pages: (P, ps, KV, hd) pools; ptab: (B, NP) int32.
+extern "C" int repro_paged_decode_f32(const float* q, const void* k_pages,
+                                      const void* v_pages, const int* ptab,
+                                      const int* kv_len, float* out, int B,
+                                      int NP, int ps, int P, int H, int KV,
+                                      int hd, float scale, void* stream) {
+  return launch<float>(q, k_pages, v_pages, kv_len, out,
+                       PagedRows{ptab, NP, ps, P}, B, H, KV, hd, scale,
+                       stream);
+}
+
+extern "C" int repro_paged_decode_bf16(const float* q, const void* k_pages,
+                                       const void* v_pages, const int* ptab,
+                                       const int* kv_len, float* out, int B,
+                                       int NP, int ps, int P, int H, int KV,
+                                       int hd, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k_pages, v_pages, kv_len, out,
+                               PagedRows{ptab, NP, ps, P}, B, H, KV, hd,
+                               scale, stream);
 }

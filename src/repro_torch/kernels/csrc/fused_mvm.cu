@@ -54,6 +54,15 @@
 // equal to kernels/ref.py::analog_mvm_diff to the bit.  The TPU kernel's
 // dot ran at the TPU's default precision; its oracle pins HIGHEST, and this
 // is fp32.  gain is a runtime argument, never compiled in.
+//
+// With LEGACY set and bit-serial accumulation (repro_analog_mvm_bitserial)
+// it replaces src/repro/kernels/analog_mvm.py::analog_mvm_bitserial_pallas
+// (kernel body _bitserial_kernel), Design D: the signed bit planes of the
+// integer activations formed in registers as in bit-serial mode, per
+// partition a dot and a value-unit ADC per bit, the 2**b shift-add (bits
+// ascending, from zero), times gain, summed over partitions in code units,
+// equal to kernels/ref.py::analog_mvm_bitserial to the bit.  It is bound
+// like the rest by the conductance bytes, read once per BM = 2 row tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,11 +161,20 @@ fused_mvm_kernel(const float* __restrict__ x,      // (M, P, R)
       }
       if (!col_ok) continue;
       if (LEGACY) {
-        // value-unit ADC times gain: code units, summed over partitions
+        // value-unit ADC of each term, the 2**b shift-add (bits ascending,
+        // from zero), times gain: code units, summed over partitions
 #pragma unroll
-        for (int mm = 0; mm < BM; ++mm)
-          acc[mm] = __fmul_rn(
-              repro::adc_value_units(v[0][mm], lo, hi_s[s], top), gain);
+        for (int mm = 0; mm < BM; ++mm) {
+          float a = 0.f;
+#pragma unroll
+          for (int b = 0; b < NB; ++b) {
+            if (b < nb) {
+              const float q = repro::adc_value_units(v[b][mm], lo, hi_s[s], top);
+              a = __fadd_rn(a, __fmul_rn(q, ldexpf(1.f, NB == 1 ? 0 : b)));
+            }
+          }
+          acc[mm] = __fmul_rn(a, gain);
+        }
         continue;
       }
       const float w_s = ldexpf(1.f, cell_bits * s);   // slice weight 2**(cb*s)
@@ -237,5 +255,19 @@ extern "C" int repro_analog_mvm_diff(const float* x, const float* gp,
                                      void* stream) {
   launch<16, 1, true>(x, gp, gm, lo, hi, nullptr, y, M, P, R, N, 1, 0,
                       adc_bits, 0, static_cast<cudaStream_t>(stream), gain);
+  return (int)cudaGetLastError();
+}
+
+// Design D: x (M, P, R) integers of at most nbits (1..8) magnitude bits,
+// g_pos/g_neg (P, R, N), scalar lo/hi; returns code units.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int repro_analog_mvm_bitserial(const float* x, const float* gp,
+                                          const float* gm, const float* lo,
+                                          const float* hi, float* y, int M,
+                                          int P, int R, int N, int nbits,
+                                          int adc_bits, float gain,
+                                          void* stream) {
+  launch<2, 8, true>(x, gp, gm, lo, hi, nullptr, y, M, P, R, N, 1, nbits,
+                     adc_bits, 0, static_cast<cudaStream_t>(stream), gain);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,8 @@
 Each launcher checks device, dtype, shape and contiguity, allocates its
 output, launches on PyTorch's current stream, raises if the launch was
 refused, and adds one to its count in :data:`LAUNCHES` (which also counts
-the launchers of ``kernels.bitline`` and ``kernels.analog_mvm``).  The
+the launchers of ``kernels.paged``, ``kernels.bitline`` and
+``kernels.analog_mvm``).  The
 plain PyTorch versions live in ``kernels.ref``; ``kernels.ops`` picks
 between them by device.  The epilogue helpers below are the reference's,
 shared with the plain version so the two cannot diverge.
@@ -36,8 +37,9 @@ from repro_torch.kernels import build
 #: launches of each kernel of the package since the last
 #: :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"fused_mvm": 0, "flash_decode": 0,
-                            "fused_mvm_parasitic": 0, "bitline_mvm": 0,
-                            "analog_bitline_diff": 0, "analog_mvm_diff": 0}
+                            "paged_attention": 0, "fused_mvm_parasitic": 0,
+                            "bitline_mvm": 0, "analog_bitline_diff": 0,
+                            "analog_mvm_diff": 0, "analog_mvm_bitserial": 0}
 
 #: kernel limits (the CUDA sources size their register tiles by these)
 MAX_SLICES = 8

@@ -22,6 +22,7 @@ from repro_torch.core.parasitics import parasitics_off
 from repro_torch.kernels import analog_mvm as _k_mvm
 from repro_torch.kernels import bitline as _k_bl
 from repro_torch.kernels import fused as _k_fused
+from repro_torch.kernels import paged as _k_paged
 from repro_torch.kernels import ref as _k_ref
 
 BACKENDS = ("kernel", "oracle")
@@ -177,6 +178,54 @@ def analog_mvm(
     return _k_mvm.analog_mvm_diff_cuda(
         _f32(x_parts), _f32(g_pos), _f32(g_neg), adc_lo, adc_hi,
         adc_bits=adc_bits, gain=gain)
+
+
+def analog_mvm_bitserial(
+    x_parts: torch.Tensor,   # (M, P, rows) integer-valued signed
+    g_pos: torch.Tensor,     # (S=1, P, rows, N) or (P, rows, N)
+    g_neg: torch.Tensor,
+    *,
+    n_bits: int,
+    adc_lo: torch.Tensor,
+    adc_hi: torch.Tensor,
+    adc_bits: int,
+    gain: float,
+    backend: str = "kernel",
+) -> torch.Tensor:
+    """Design-D bit-serial analog MVM (signed bit planes, a dot and an ADC
+    per bit, shift-and-add, partition sum in one launch); returns (M, N)
+    code units."""
+    _check_backend(backend, "analog_mvm_bitserial")
+    g_pos, g_neg = _unsliced(g_pos, g_neg)
+    if _plain(backend, x_parts):
+        return _k_ref.analog_mvm_bitserial(
+            x_parts, g_pos, g_neg, n_bits=n_bits, adc_lo=adc_lo,
+            adc_hi=adc_hi, adc_bits=adc_bits, gain=gain)
+    return _k_mvm.analog_mvm_bitserial_cuda(
+        _f32(x_parts), _f32(g_pos), _f32(g_neg), adc_lo, adc_hi,
+        n_bits=n_bits, adc_bits=adc_bits, gain=gain)
+
+
+def paged_attention(
+    q: torch.Tensor,          # (B, H, hd)
+    k_pages: torch.Tensor,    # (P, page_size, KV, hd) pool
+    v_pages: torch.Tensor,    # (P, page_size, KV, hd)
+    ptab: torch.Tensor,       # (B, NP) block table
+    kv_len: torch.Tensor,     # (B,) valid positions per row
+    *,
+    backend: str = "kernel",
+) -> torch.Tensor:
+    """Decode attention over a paged KV pool, scaled by ``hd ** -0.5``; the
+    kernel reads each row's pages through the block table (no gathered
+    copy, the pool in its own dtype).  Returns (B, H, hd) in ``q``'s dtype.
+    Positions at or beyond ``kv_len[b]`` contribute exact zeros, so the
+    table's tail past a row's fill is never read."""
+    _check_backend(backend, "paged_attention")
+    if _plain(backend, q):
+        out = _k_ref.paged_attention_decode(q, k_pages, v_pages, ptab, kv_len)
+    else:
+        out = _k_paged.paged_attention_cuda(q, k_pages, v_pages, ptab, kv_len)
+    return out.to(q.dtype)
 
 
 def flash_attention_decode(

@@ -221,6 +221,36 @@ def analog_mvm_diff(
     return out
 
 
+def analog_mvm_bitserial(
+    x_parts: torch.Tensor,   # (M, P, rows) integer-valued, signed
+    g_pos: torch.Tensor,     # (P, rows, N)
+    g_neg: torch.Tensor,     # (P, rows, N)
+    *,
+    n_bits: int,
+    adc_lo,
+    adc_hi,
+    adc_bits: int,
+    gain: float,
+) -> torch.Tensor:
+    """Plain version of the Design-D bit-serial kernel: per partition each
+    signed bit plane's dot with ``g_pos - g_neg`` (rows ascending, as
+    :func:`fused_pre_adc`), its value-unit ADC, the ``2**b`` shift-add (bits
+    ascending, from zero), ``* gain``; partitions summed in order from zero
+    (the kernel's order: the reference oracle sums partitions before bits).
+    Returns (M, N) code units."""
+    m, p, _ = x_parts.shape
+    dev = x_parts.device
+    lo, hi = _scalars(dev, adc_lo, adc_hi)
+    v = fused_pre_adc(x_parts, g_pos[None], g_neg[None], n_bits)[:, 0]
+    out = torch.zeros((m, g_pos.shape[-1]), dtype=torch.float32, device=dev)
+    for pi in range(p):
+        acc = torch.zeros_like(out)
+        for b in range(n_bits):
+            acc = acc + _adc_epilogue(v[pi, b], lo, hi, adc_bits) * 2.0 ** b
+        out = out + acc * gain
+    return out
+
+
 def analog_mvm_parasitic_diff(
     x_parts: torch.Tensor,   # (M, P, rows) integer-valued, signed
     g_pos: torch.Tensor,     # (P, rows, N)

@@ -29,6 +29,15 @@ bound on reordering a sum of ``kv_len`` terms), and the ``exp`` and the
 division add a few ulps of the output: each element must lie within
 ``4 ulp(|out|) + kv_len * eps * max|v|`` of the plain value, with
 ``max|v|`` over the row's valid positions and its KV head.
+
+Paged attention: the flash-decode bound, ``v`` being the gathered view
+``v_pages[ptab]`` of each row's pages.  The paged kernel and the
+flash-decode kernel sum in one order that depends on ``kv_len`` alone, so
+on a pool and the dense view gathered from it they agree to the bit.
+
+Design-D bit-serial MVM: the legacy bound (within 2 ulp or 0.25 of
+``gain``), its ADC'd terms being each (partition, bit)'s dot, a one-code
+flip of bit ``b`` moving the output by ``gain * lsb * 2**b``.
 """
 
 from __future__ import annotations
@@ -87,6 +96,20 @@ FUSED_PARASITIC_GRID = [c + (r,) for c in ((4, 1, 1, 24, 9), (8, 2, 2, 33, 7),
                         for r in (1e-5, 1e-3)]
 LEGACY_GAIN = 127.0
 LEGACY_RANGE = (-50.0, 50.0)
+#: paged-attention cases (b, h, kv, hd, page_size, NP, pool dtype): the
+#: ``PAGED_SHAPES`` of ``tests/test_kernels.py`` (multi-page rows, ragged
+#: last pages, GQA groups, single-page tables, page_size 1) with float32
+#: pools, then a bfloat16 pool at qwen1.5-4b's KV heads and head dimension
+PAGED_GRID = [c + ("float32",) for c in (
+    (1, 2, 1, 8, 4, 2), (3, 4, 2, 8, 4, 4), (2, 4, 4, 16, 8, 2),
+    (4, 8, 2, 32, 8, 4), (2, 2, 2, 8, 4, 1), (3, 2, 1, 8, 1, 6),
+    (2, 6, 3, 8, 2, 5))] + [(4, 20, 20, 128, 8, 4, "bfloat16")]
+#: Design-D bit-serial cases (m, p, rows, n, n_bits): the first four legacy
+#: shapes and the edge shapes, at 4 and 7 input bits
+#: (``tests/test_kernels.py::test_analog_mvm_bitserial_matches_ref``)
+BITSERIAL_GRID = [c + (nb,) for c in _MVM[:4] + _MVM_EDGE for nb in (4, 7)]
+BITSERIAL_GAIN = 127.0
+BITSERIAL_RANGE = (-20.0, 20.0)
 
 
 def fused_case(m, p, s, rows, n, seed=None):
@@ -112,6 +135,41 @@ def flash_case(b, s, kv, g, hd, seed=None):
     v = rng.standard_normal((b, s, kv, hd)).astype(np.float32)
     fills = rng.integers(1, s + 1, size=b).astype(np.int32)
     return q, k, v, fills
+
+
+def paged_case(b, h, kv, hd, ps, n_pages, seed=0):
+    """numpy operands of one paged-attention case: q (b, h, hd), a pool of
+    ``1 + b * n_pages`` pages (ps, kv, hd) for K and for V, a block table
+    (b, n_pages) of shuffled pages with ragged fills (the last page partly
+    valid) and sink-padded tails, and the fills (b,)."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + b * n_pages
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k_pages = rng.standard_normal((num_pages, ps, kv, hd)).astype(np.float32)
+    v_pages = rng.standard_normal((num_pages, ps, kv, hd)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, num_pages))
+    ptab = np.zeros((b, n_pages), np.int32)
+    kv_len = np.zeros((b,), np.int32)
+    for i in range(b):
+        n = int(rng.integers(1, n_pages * ps + 1))
+        used = -(-n // ps)
+        ptab[i, :used] = perm[i * n_pages:i * n_pages + used]
+        kv_len[i] = n
+    return q, k_pages, v_pages, ptab, kv_len
+
+
+def bitserial_case(m, p, rows, n, n_bits, seed=None):
+    """numpy operands of one bit-serial case: signed integer activations of
+    at most ``n_bits`` magnitude bits (m, p, rows), conductances (p, rows,
+    n) in [0, 0.1)."""
+    rng = np.random.default_rng(m + p + n_bits + rows if seed is None
+                                else seed)
+    qmax = 2 ** n_bits - 1
+    x = np.clip(np.round(rng.standard_normal((m, p, rows)) * qmax / 3),
+                -qmax, qmax).astype(np.float32)
+    gp = (rng.random((p, rows, n)) * 0.1).astype(np.float32)
+    gm = (rng.random((p, rows, n)) * 0.1).astype(np.float32)
+    return x, gp, gm
 
 
 def fused_parasitic_case(m, p, s, rows, n):
@@ -304,6 +362,42 @@ def analog_mvm_check(
     return _codes_check(y, y_plain, FUSED_CODES * float(gain), terms)
 
 
+def bitserial_check(
+    y: torch.Tensor,          # (M, N) code units under test
+    y_plain: torch.Tensor,    # (M, N) plain (or reference) result
+    x_parts: torch.Tensor,    # (M, P, rows) the operands
+    g_pos: torch.Tensor,      # (P, rows, N)
+    g_neg: torch.Tensor,
+    adc_lo,
+    adc_hi,
+    gain: float,
+    *,
+    adc_bits: int,
+    n_bits: int,
+    v_other: Optional[torch.Tensor] = None,
+) -> Dict[str, float]:
+    """Hold a Design-D bit-serial result against ``y_plain``: within 2 ulp
+    or 0.25 of ``gain``, a one-code flip of bit ``b`` (``gain * lsb *
+    2**b``) only next to a rounding edge of that (partition, bit)'s pre-ADC
+    value.  ``v_other`` (P, B, M, N), the pre-ADC values on the side of
+    ``y`` where they were summed in another order, also explains a flip
+    where they lie across the edge from the plain value."""
+    dev = y_plain.device
+    lo, hi = _slice_ranges(adc_lo, adc_hi, 1, dev)
+    lsb = true_div(hi[0] - lo[0], 2 ** adc_bits - 1)
+
+    def terms():
+        v_all = fused_pre_adc(x_parts.to(dev), g_pos.to(dev)[None],
+                              g_neg.to(dev)[None], n_bits)[:, 0]
+        for pi in range(v_all.shape[0]):
+            for b in range(n_bits):
+                yield (v_all[pi, b], lo[0], lsb,
+                       float(gain) * float(lsb) * 2.0 ** b,
+                       None if v_other is None else v_other[pi, b])
+
+    return _codes_check(y, y_plain, FUSED_CODES * float(gain), terms)
+
+
 def bitline_check(i: torch.Tensor, i_plain: torch.Tensor) -> Dict[str, float]:
     """Hold bit-line currents within ``BITLINE_ULP`` ulps of ``|I|``;
     returns ``ok``, ``bad``, ``max_abs_err`` and ``max_ulp``."""
@@ -353,3 +447,20 @@ def flash_decode_check(
         "max_abs_err": float(d.max()) if d.numel() else 0.0,
         "max_bound_frac": float(frac.max()) if d.numel() else 0.0,
     }
+
+
+def paged_attention_check(
+    out: torch.Tensor,        # (B, H, hd) result under test
+    out_plain: torch.Tensor,  # (B, H, hd)
+    v_pages: torch.Tensor,    # (P, ps, KV, hd) the pool both attended over
+    ptab: torch.Tensor,       # (B, NP) block table
+    kv_len: torch.Tensor,     # (B,)
+) -> Dict[str, float]:
+    """Hold ``out`` against ``out_plain`` under the flash-decode bound, over
+    the gathered view of each row's pages."""
+    dev = out_plain.device
+    b, n_pages = ptab.shape
+    _, ps, kv_heads, hd = v_pages.shape
+    v = v_pages.to(dev)[ptab.to(dev).long()].reshape(b, n_pages * ps,
+                                                     kv_heads, hd)
+    return flash_decode_check(out, out_plain, v, kv_len)

@@ -1,12 +1,11 @@
 """Attention block: GQA/MQA, RoPE, optional QKV bias / per-head qk-norm /
-sliding window, prefill and dense-cache decode (counterpart of
-``repro.models.attention``).
+sliding window, prefill, dense-cache decode and paged decode (counterpart
+of ``repro.models.attention``).
 
-Decode writes the new token's K/V into the cache **in place** (the
-reference builds a new array with ``.at[].set``): the callers never read
-the old cache again, and the slot cache of a server is the largest
-activation-side buffer there is.  The paged branch of the reference
-waits for ROADMAP queue A item 7.
+Decode writes the new token's K/V into the cache (or the page pool) **in
+place** (the reference builds a new array with ``.at[].set``): the callers
+never read the old cache again, and the slot cache or pool of a server is
+the largest activation-side buffer there is.
 """
 
 from __future__ import annotations
@@ -72,6 +71,7 @@ def attention_block(
     ctx: Optional[AnalogCtx] = None,
     aux: Optional[dict] = None,
     attn_backend: str = "stream",  # dense decode: stream | flash | flash_oracle
+    paged: Optional[dict] = None,  # {"ptab", "backend"}: paged decode
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -89,6 +89,12 @@ def attention_block(
 
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+
+    if paged is not None:
+        out = _paged_decode(q, k, v, cache, cache_len, paged, causal=causal,
+                            window=window)
+        out = out.reshape(b, s, h * hd)
+        return dense(out, p["wo"], "wo", ctx, aux), cache
 
     if cache is None:
         out = streaming_attention(q, k, v, q_offset=0, causal=causal,
@@ -122,3 +128,42 @@ def attention_block(
 
     out = out.reshape(b, s, h * hd)
     return dense(out, p["wo"], "wo", ctx, aux), new_cache
+
+
+def _paged_decode(q, k, v, pool: dict, cache_len, paged: dict, *, causal,
+                  window) -> torch.Tensor:
+    """Paged decode: ``pool`` {"k", "v"} is a global ``(P, ps, KV, hd)``
+    page pool and ``paged["ptab"]`` (B, NP) each row's page list.  The fresh
+    token's K/V are scattered in place at ``(ptab[b, clip(pos // ps, 0,
+    NP - 1)], pos % ps)``; a row whose table entry is unallocated (0) writes
+    into the sink page, which no live row's ``kv_len`` mask reaches.  Then
+    backend ``"gather"`` runs the dense decode's ``streaming_attention``
+    over ``pool[ptab]`` viewed as ``(B, NP * ps, KV, hd)`` (with
+    ``NP * ps == max_len`` the same computation as the dense slot cache),
+    ``"kernel"`` the paged-attention kernel and ``"oracle"`` its plain
+    version (``ops.paged_attention``)."""
+    b, s, _, _ = q.shape
+    if s != 1:
+        raise ValueError("paged attention is a decode path (S == 1); "
+                         "prefill goes through the dense cached path")
+    pk, pv = pool["k"], pool["v"]
+    ps = pk.shape[1]
+    ptab = paged["ptab"]
+    n_pages = ptab.shape[1]
+    pos = torch.as_tensor(cache_len, device=q.device).long().reshape(-1) \
+        .expand(b)
+    idx = torch.clamp(pos // ps, 0, n_pages - 1)
+    pid = torch.gather(ptab.long(), 1, idx[:, None])[:, 0]
+    off = pos % ps
+    pk[pid, off] = k[:, 0].to(pk.dtype)
+    pv[pid, off] = v[:, 0].to(pv.dtype)
+    if paged["backend"] == "gather":
+        kv_heads, hd = pk.shape[2], pk.shape[3]
+        gk = pk[ptab.long()].reshape(b, n_pages * ps, kv_heads, hd)
+        gv = pv[ptab.long()].reshape(b, n_pages * ps, kv_heads, hd)
+        return streaming_attention(q, gk, gv, q_offset=pos, causal=causal,
+                                   window=window, kv_len=pos + 1)
+    from repro_torch.kernels.ops import paged_attention
+
+    return paged_attention(q[:, 0], pk, pv, ptab, pos + 1,
+                           backend=paged["backend"])[:, None]

@@ -22,6 +22,11 @@ class ModelApi:
     prefill_ragged: Optional[Callable] = None
     cache_slot_insert: Optional[Callable] = None
     cache_slot_evict: Optional[Callable] = None
+    # paged-KV serving (serve.paged): global page pool, ragged suffix
+    # prefill over shared prefixes, block-table decode
+    init_page_pool: Optional[Callable] = None
+    prefill_cached: Optional[Callable] = None
+    decode_step_paged: Optional[Callable] = None
 
 
 _TRANSFORMER = ModelApi(
@@ -34,6 +39,9 @@ _TRANSFORMER = ModelApi(
     prefill_ragged=transformer.prefill_ragged,
     cache_slot_insert=transformer.cache_slot_insert,
     cache_slot_evict=transformer.cache_slot_evict,
+    init_page_pool=transformer.init_page_pool,
+    prefill_cached=transformer.prefill_cached,
+    decode_step_paged=transformer.decode_step_paged,
 )
 
 _BY_FAMILY = {"dense": _TRANSFORMER}

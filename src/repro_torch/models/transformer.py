@@ -11,7 +11,9 @@ are sliced per layer; see ``repro_torch.serve.analog_engine``.
 
 KV caches are ``{"layers": {"attn": {"k", "v"}}, "len"}`` with k/v of
 shape ``(L, B, S_max, KV, hd)`` in ``cfg.dtype``; decode steps write into
-them in place (see ``models.attention``).
+them in place (see ``models.attention``).  Paged serving keeps a global page
+pool ``{"attn": {"k", "v"}}`` of ``(L, P, page_size, KV, hd)`` instead
+(:func:`init_page_pool`, :func:`prefill_cached`, :func:`decode_step_paged`).
 """
 
 from __future__ import annotations
@@ -136,12 +138,14 @@ def _layer(tree, i: int):
 
 def _block(cfg: ModelConfig, p_l: dict, x: torch.Tensor, *, positions,
            window, cache_l: Optional[dict], cache_len,
-           actx: Optional[AnalogCtx], attn_backend: str = "stream"):
+           actx: Optional[AnalogCtx], attn_backend: str = "stream",
+           paged: Optional[dict] = None):
     aux: Dict[str, torch.Tensor] = {}
     h, new_kv = attention_block(
         p_l["attn"], norm(x, p_l["norm1"], cfg.norm), cfg,
         positions=positions, window=window, cache=cache_l,
-        cache_len=cache_len, ctx=actx, aux=aux, attn_backend=attn_backend)
+        cache_len=cache_len, ctx=actx, aux=aux, attn_backend=attn_backend,
+        paged=paged)
     x = x + h
     x = x + mlp_block(p_l["mlp"], norm(x, p_l["norm2"], cfg.norm), cfg.act,
                       actx, aux)
@@ -180,8 +184,10 @@ def _stack_aux(auxes: List[dict]) -> Dict[str, torch.Tensor]:
 
 def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                 positions, cache: Optional[dict], cache_len,
-                pack: Optional[AnalogPack], attn_backend: str = "stream"):
-    """All layers, band by band; returns (x, cache, aux)."""
+                pack: Optional[AnalogPack], attn_backend: str = "stream",
+                paged: Optional[dict] = None):
+    """All layers, band by band; returns (x, cache, aux).  With ``paged``
+    ({"ptab", "backend"}), ``cache`` is the page pool."""
     windows = layer_windows(cfg)
     bands = pack.bands if pack is not None else ((0, cfg.n_layers),)
     ks, vs, auxes = [], [], []
@@ -194,7 +200,7 @@ def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                 window=None if windows is None else windows[i],
                 cache_l=cache_l, cache_len=cache_len,
                 actx=None if pack is None else _make_actx(pack, i, band),
-                attn_backend=attn_backend)
+                attn_backend=attn_backend, paged=paged)
             ks.append(kv["k"])
             vs.append(kv["v"])
             auxes.append(aux)
@@ -299,6 +305,86 @@ def prefill_ragged(cfg: ModelConfig, params: dict, tokens, *, true_lens,
     last = torch.gather(x, 1, idx)
     return _head(cfg, params, last, pack), {"layers": new_cache,
                                             "len": true_lens}
+
+
+def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int, *,
+                   device="cuda") -> dict:
+    """Global paged KV pool: ``num_pages`` pages of ``page_size`` positions
+    per layer, ``{"attn": {"k", "v"}}`` of ``(L, P, page_size, KV, hd)`` in
+    ``cfg.dtype``.  Page 0 is the sink page (``serve.kvpool`` never hands it
+    out): rows without a live allocation scatter their decode K/V there, and
+    no live row's block table references it."""
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    kw = dict(dtype=compute_dtype(cfg), device=device)
+    return {"attn": {"k": torch.zeros(shape, **kw),
+                     "v": torch.zeros(shape, **kw)}}
+
+
+def prefill_cached(cfg: ModelConfig, params: dict, tokens, *, true_lens,
+                   ctx_lens, ctx_cache: dict,
+                   pack: Optional[AnalogPack] = None
+                   ) -> Tuple[torch.Tensor, dict]:
+    """Ragged prefill of prompt suffixes over per-row cached prefixes.
+
+    ``tokens`` (B, S) are right-padded suffixes, ``true_lens`` (B,) their
+    lengths; each row already owns ``ctx_lens[b]`` valid positions of
+    ``ctx_cache`` {"k", "v"} ``(L, B, C, KV, hd)``.  The caller passes a
+    copy of the shared pages (gathered from the pool), never the pool
+    itself: this function pads it to ``C + S`` and writes the suffix's K/V
+    into the padded copy, which a shared page must never see.  Every
+    matmul still goes through ``pack`` as a cold prefill would.
+
+    Returns per-row logits at suffix position ``true_lens - 1`` (B, 1, V)
+    and a cache holding the context in ``[0, C)`` and the suffix at
+    ``ctx_lens + [0, S)``, with ``len`` the total fill ``ctx_lens +
+    true_lens``."""
+    tokens = _tokens(params, tokens)
+    s = tokens.shape[1]
+    x = _embed(cfg, params, tokens)
+    ctx_lens = torch.as_tensor(ctx_lens, device=x.device).to(torch.int32)
+    positions = ctx_lens[:, None] + torch.arange(s, device=x.device)[None, :]
+    padded = {n: F.pad(a, (0, 0, 0, 0, 0, s)) for n, a in ctx_cache.items()}
+    x, new_cache, _ = _run_layers(cfg, params, x, positions=positions,
+                                  cache={"attn": padded}, cache_len=ctx_lens,
+                                  pack=pack)
+    true_lens = torch.as_tensor(true_lens, device=x.device).to(torch.int32)
+    idx = (true_lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+    last = torch.gather(x, 1, idx)
+    return _head(cfg, params, last, pack), {"layers": new_cache,
+                                            "len": ctx_lens + true_lens}
+
+
+PAGED_BACKENDS = ("gather", "kernel", "oracle")
+
+
+def decode_step_paged(cfg: ModelConfig, params: dict, token, cache: dict, *,
+                      pack: Optional[AnalogPack] = None,
+                      backend: str = "gather") -> Tuple[torch.Tensor, dict]:
+    """One decode step over the paged KV pool (written in place).
+
+    ``cache`` is ``{"pool": init_page_pool(...), "ptab": (B, NP) block
+    table on the pool's device, "len": (B,) fills}``.  ``backend="gather"``
+    runs the dense decode's streaming attention over the gathered view
+    ``pool[ptab]`` (the configuration that equals the dense runtime token
+    for token), ``"kernel"`` the paged-attention CUDA kernel
+    (``kernels.ops.paged_attention``; no sliding-window mask), ``"oracle"``
+    its plain PyTorch version.
+    """
+    if backend not in PAGED_BACKENDS:
+        raise ValueError(f"unknown paged backend {backend!r}; choose from "
+                         f"{PAGED_BACKENDS}")
+    if backend != "gather" and cfg.sliding_window is not None:
+        raise ValueError("the paged-attention kernel has no sliding-window "
+                         "mask; use backend='gather'")
+    token = _tokens(params, token)
+    x = _embed(cfg, params, token)
+    t = torch.as_tensor(cache["len"], device=x.device).to(torch.int32)
+    positions = t[:, None] + torch.arange(1, device=x.device)[None, :]
+    x, pool, _ = _run_layers(cfg, params, x, positions=positions,
+                             cache=cache["pool"], cache_len=t, pack=pack,
+                             paged={"ptab": cache["ptab"], "backend": backend})
+    logits = _head(cfg, params, x, pack)
+    return logits, {"pool": pool, "ptab": cache["ptab"], "len": t + 1}
 
 
 def cache_slot_insert(slot_cache: dict, new_cache: dict,

@@ -1,7 +1,8 @@
 """Serve an LM through the analog pipeline (counterpart of
 ``repro.serve``): program + calibrate (``analog_engine``), one-shot
-batched decode (``decode_lm``) and the continuous-batching runtime
-(``runtime``)."""
+batched decode (``decode_lm``), the continuous-batching runtime
+(``runtime``) and its paged-KV form with prefix sharing (``paged``, over
+``kvpool``)."""
 
 from repro_torch.serve.analog_engine import (
     analog_eval_metrics,
@@ -13,6 +14,8 @@ from repro_torch.serve.analog_engine import (
     program_lm,
     program_lm_from_codes,
 )
+from repro_torch.serve.kvpool import PageAllocator, RadixCache
+from repro_torch.serve.paged import PagedServeRuntime
 from repro_torch.serve.runtime import (
     Completion,
     SamplerConfig,
@@ -31,6 +34,9 @@ __all__ = [
     "lm_program_codes",
     "program_lm",
     "program_lm_from_codes",
+    "PageAllocator",
+    "PagedServeRuntime",
+    "RadixCache",
     "Completion",
     "SamplerConfig",
     "ServeRuntime",

@@ -28,6 +28,14 @@ device: streams are reproducible per key and differ from the reference's
 ``gang=True`` degrades the scheduler to static batching (the baseline).
 Device-state management (``manager=``, ``clock=``, ``heal=``) waits for
 ROADMAP queue A item 8 and raises.
+
+The paged runtime (``serve.paged.PagedServeRuntime``) overrides the
+reference's hooks: :meth:`ServeRuntime._init_layers` (the KV layout),
+:meth:`ServeRuntime._reserve` (admission resources of the queue head),
+:meth:`ServeRuntime._group_key` (prefill groups, dispatched in ascending
+key order), :meth:`ServeRuntime._prefill_group`,
+:meth:`ServeRuntime._decode_model` (the model half of a decode step) and
+:meth:`ServeRuntime._free_slot`.
 """
 
 from __future__ import annotations
@@ -239,8 +247,7 @@ class ServeRuntime:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         self._state = SlotState(
-            layers=self._api.init_cache(self.cfg, b, self.max_len,
-                                        device=dev)["layers"],
+            layers=self._init_layers(),
             length=zeros(b), tok=zeros(b, dtype=torch.int64),
             active=zeros(b, dtype=torch.bool), emitted=zeros(b),
             max_new=torch.ones((b,), dtype=torch.int32, device=dev),
@@ -251,6 +258,12 @@ class ServeRuntime:
         self._live_uids: set = set()
         self._stats = {"decode_steps": 0, "prefill_calls": 0,
                        "occupancy_sum": 0, "tokens_out": 0, "ttft_s": []}
+
+    def _init_layers(self):
+        """The slot-batched cache tree this runtime decodes over (hook: the
+        paged runtime swaps in a global page pool)."""
+        return self._api.init_cache(self.cfg, self.max_slots, self.max_len,
+                                    device=self.device)["layers"]
 
     @property
     def stats(self) -> Dict[str, Any]:
@@ -315,7 +328,7 @@ class ServeRuntime:
         t = self._stats["decode_steps"]
         live = sum(p is not None and p.done_step > t for p in self._slots)
         if live:
-            self._decode()
+            self._run_decode()
             self._stats["decode_steps"] += 1
             self._stats["occupancy_sum"] += live
         return early + self._collect()
@@ -344,18 +357,35 @@ class ServeRuntime:
             return False                # static batching: wait for a full drain
         take: List[_Pending] = []
         while self._queue and len(take) < len(free):
+            if not self._reserve(self._queue[0]):
+                break                   # backpressure: keep FIFO order intact
             take.append(self._queue.popleft())
-        groups: Dict[int, List[Tuple[_Pending, int]]] = {}
+        if not take:
+            return False
+        groups: Dict[Tuple, List[Tuple[_Pending, int]]] = {}
         if self.gang:
             bucket = self._bucket_for(max(r.prompt.size for r in take))
-            groups[bucket] = [(r, free.pop(0)) for r in take]
+            groups[(bucket,)] = [(r, free.pop(0)) for r in take]
         else:
             for r in take:
-                groups.setdefault(self._bucket_for(r.prompt.size), []).append(
+                groups.setdefault(self._group_key(r), []).append(
                     (r, free.pop(0)))
-        for bucket in sorted(groups):
-            self._prefill_group(bucket, groups[bucket])
+        # ascending key order: the paged runtime's keys sort by cached-prefix
+        # length, so a prefix donor's prefill writes its pages before any
+        # same-batch borrower gathers them
+        for key in sorted(groups):
+            self._prefill_group(key, groups[key])
         return True
+
+    def _reserve(self, req: _Pending) -> bool:
+        """Claim admission resources for the queue head (hook); False leaves
+        it queued (the paged runtime's pool is full)."""
+        return True
+
+    def _group_key(self, req: _Pending) -> Tuple:
+        """Prefill-group key of an admitted request (hook); the last element
+        is always the padded prompt bucket."""
+        return (self._bucket_for(req.prompt.size),)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -363,8 +393,9 @@ class ServeRuntime:
                 return b
         raise AssertionError(n)         # unreachable: submit() validates
 
-    def _prefill_group(self, bucket: int,
+    def _prefill_group(self, key: Tuple,
                        items: List[Tuple[_Pending, int]]) -> None:
+        bucket = key[-1]
         g = min(_pow2_at_least(len(items)), self.max_slots)
         prompts = np.zeros((g, bucket), np.int64)
         true_lens = np.ones((g,), np.int32)
@@ -381,6 +412,11 @@ class ServeRuntime:
         self._prefill(*(torch.as_tensor(a, device=self.device)
                         for a in (prompts, true_lens, slots, max_new, keys)),
                       n_real=len(items))
+        self._admitted(items)
+
+    def _admitted(self, items: List[Tuple[_Pending, int]]) -> None:
+        """Bookkeeping after a group's prefill: counts, TTFT, and the decode
+        step at which each request retires."""
         self._stats["prefill_calls"] += 1
         if self.measure_ttft and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -396,10 +432,16 @@ class ServeRuntime:
         logits, pcache = self._api.prefill_ragged(
             self.cfg, self.params, prompts, true_lens=true_lens,
             pack=self.pack)
-        first, keys = sample_tokens(logits[:, -1], keys, self.sampler)
         self._api.cache_slot_insert({"layers": st.layers, "len": st.length},
                                     pcache, slots)
-        # the first n_real rows are real requests, the rest padding
+        self._start_rows(logits, keys, slots, max_new, n_real)
+
+    def _start_rows(self, logits, keys, slots, max_new, n_real: int) -> None:
+        """Sample the first token of freshly prefilled rows from their
+        (G, 1, V) ``logits`` and set their slot state; the first ``n_real``
+        rows are real requests, the rest padding."""
+        st = self._state
+        first, keys = sample_tokens(logits[:, -1], keys, self.sampler)
         rows = slots[:n_real]
         first, keys, max_new = first[:n_real], keys[:n_real], max_new[:n_real]
         live = (max_new > 1) & (first != self._eos)       # 1-token budgets
@@ -411,15 +453,22 @@ class ServeRuntime:
         st.out[rows, 0] = first.to(st.out.dtype)
         st.key[rows] = keys
 
-    def _decode(self) -> None:
-        """One ``decode_step`` over every slot, then sampling and
-        bookkeeping (finished/free slots ride along masked)."""
-        st = self._state
+    def _decode_model(self, st: SlotState):
+        """The model half of a decode step over every slot (hook, the
+        reference's ``_make_decode_model``): (last-token logits, new cache
+        layers, new lengths)."""
         logits, cache = self._api.decode_step(
             self.cfg, self.params, st.tok[:, None],
             {"layers": st.layers, "len": st.length}, pack=self.pack,
             attn_backend=self.attn_backend)
-        nxt, keys = sample_tokens(logits[:, -1], st.key, self.sampler)
+        return logits[:, -1], cache["layers"], cache["len"]
+
+    def _run_decode(self) -> None:
+        """One decode step over every slot, then sampling and bookkeeping
+        (finished/free slots ride along masked)."""
+        st = self._state
+        logits, layers, length = self._decode_model(st)
+        nxt, keys = sample_tokens(logits, st.key, self.sampler)
         act = st.active
         cap = st.out.shape[1]
         hit = (torch.arange(cap, device=self.device)[None, :]
@@ -428,8 +477,8 @@ class ServeRuntime:
         emitted = st.emitted + act.to(st.emitted.dtype)
         done = act & ((emitted >= st.max_new) | (nxt == self._eos))
         self._state = SlotState(
-            layers=cache["layers"],
-            length=torch.where(act, cache["len"], st.length),
+            layers=layers,
+            length=torch.where(act, length, st.length),
             tok=torch.where(act, nxt, st.tok),
             active=act & ~done,
             emitted=emitted,
@@ -458,7 +507,7 @@ class ServeRuntime:
         done = []
         for i in finished:
             req = self._slots[i]
-            self._slots[i] = None
+            self._free_slot(i)
             self._live_uids.discard(str(req.uid))
             toks = out[i, :emitted[i]].astype(np.int32)
             self._stats["tokens_out"] += int(emitted[i])
@@ -466,3 +515,9 @@ class ServeRuntime:
                                    prompt_len=int(req.prompt.size),
                                    ttft_s=req.ttft_s))
         return done
+
+    def _free_slot(self, i: int) -> None:
+        """Return slot ``i`` to the free list (hook: the paged runtime also
+        releases the slot's pages and points its block-table row at the
+        sink)."""
+        self._slots[i] = None

@@ -6,12 +6,15 @@ on a machine with one (and nvcc) run
 
 The file imports torch and the port only, so it runs where JAX is not
 installed.  Bounds (``repro_torch.kernels.tolerance``): the fused MVM, the
-fused parasitic MVM and the legacy Design-A kernels within 2 ulp or 0.25 of
-a dequant grid step, one-code ADC flips only where the pre-ADC value lies
-within 4 ulp of a rounding edge; bit-line currents within 2 ulp of
-``|I|``; flash decode within ``4 ulp + kv_len * eps * max|v|``.  The grids
-(``tolerance.*_GRID``) are those of ``tests/test_kernels.py``, shared with
-``tests/test_torch_kernels.py``, ``tests/test_torch_parasitics.py`` and
+fused parasitic MVM, the legacy Design-A and the Design-D bit-serial
+kernels within 2 ulp or 0.25 of a dequant grid step (or of ``gain``),
+one-code ADC flips only where the pre-ADC value lies within 4 ulp of a
+rounding edge; bit-line currents within 2 ulp of ``|I|``; flash decode and
+paged attention within ``4 ulp + kv_len * eps * max|v|``, and the paged
+kernel equal to the flash-decode kernel on the gathered view to the bit.
+The grids (``tolerance.*_GRID``) are those of ``tests/test_kernels.py``,
+shared with ``tests/test_torch_kernels.py``,
+``tests/test_torch_parasitics.py``, ``tests/test_torch_paged.py`` and
 ``chip_smoke.py``.
 """
 
@@ -22,13 +25,16 @@ from repro_torch.kernels import fused as t_fused
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import tolerance
 from repro_torch.kernels import build
-from repro_torch.kernels.tolerance import (BITLINE_GRID, FLASH_GRID,
-                                           FUSED_GRID, FUSED_PARASITIC_GRID,
-                                           LEGACY_GAIN, LEGACY_GRID,
-                                           LEGACY_PARASITIC_GRID,
-                                           LEGACY_RANGE, bitline_case,
+from repro_torch.kernels.tolerance import (BITLINE_GRID, BITSERIAL_GAIN,
+                                           BITSERIAL_GRID, BITSERIAL_RANGE,
+                                           FLASH_GRID, FUSED_GRID,
+                                           FUSED_PARASITIC_GRID, LEGACY_GAIN,
+                                           LEGACY_GRID, LEGACY_PARASITIC_GRID,
+                                           LEGACY_RANGE, PAGED_GRID,
+                                           bitline_case, bitserial_case,
                                            flash_case, fused_case,
-                                           fused_parasitic_case, legacy_case)
+                                           fused_parasitic_case, legacy_case,
+                                           paged_case)
 
 
 def _ids(grid):
@@ -225,3 +231,125 @@ def test_r_hat_and_gain_are_runtime_arguments(cuda_device):
     assert build.PTXAS_REPORT == built
     assert not torch.equal(outs[0], outs[1])
     assert not torch.equal(outs[1], outs[2])
+
+
+def _paged_on(dev, case, seed=0):
+    b, h, kv, hd, ps, npg, pool_dtype = case
+    q, k, v, ptab, kv_len = _on(dev, *paged_case(b, h, kv, hd, ps, npg,
+                                                 seed=seed))
+    dt = getattr(torch, pool_dtype)
+    return q, k.to(dt), v.to(dt), ptab, kv_len
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_GRID, ids=_ids(PAGED_GRID))
+def test_paged_attention_kernel_matches_plain(cuda_device, case):
+    q, k, v, ptab, kv_len = _paged_on(cuda_device, case)
+    before = t_fused.LAUNCHES["paged_attention"]
+    out = t_ops.paged_attention(q, k, v, ptab, kv_len)
+    ref = t_ops.paged_attention(q, k, v, ptab, kv_len, backend="oracle")
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["paged_attention"] == before + 1
+    res = tolerance.paged_attention_check(out, ref, v, ptab, kv_len)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_GRID, ids=_ids(PAGED_GRID))
+def test_paged_attention_kernel_equals_flash_on_gathered_view(cuda_device,
+                                                              case):
+    """One summation order, set by kv_len alone: the paged kernel on a pool
+    and a shuffled block table equals the flash-decode kernel on the dense
+    view gathered from them, to the bit."""
+    q, k, v, ptab, kv_len = _paged_on(cuda_device, case, seed=5)
+    b, npg = ptab.shape
+    _, ps, kv, hd = k.shape
+    gk = k[ptab.long()].reshape(b, npg * ps, kv, hd).contiguous()
+    gv = v[ptab.long()].reshape(b, npg * ps, kv, hd).contiguous()
+    paged = t_ops.paged_attention(q, k, v, ptab, kv_len)
+    flash = t_ops.flash_attention_decode(q, gk, gv, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, flash)
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_ignores_table_tail(cuda_device):
+    """Table entries past a row's fill (the sink, or any other page) are
+    never read."""
+    q, k, v, ptab, kv_len = _paged_on(cuda_device,
+                                      (3, 4, 2, 8, 4, 4, "float32"), seed=1)
+    base = t_ops.paged_attention(q, k, v, ptab, kv_len)
+    tab = ptab.clone()
+    for i, n in enumerate(kv_len.tolist()):
+        tab[i, -(-n // 4):] = (i + 5) % tab.shape[1] + 1
+    k2, v2 = k.clone(), v.clone()
+    k2[0], v2[0] = float("nan"), float("nan")          # the sink page
+    assert torch.equal(base, t_ops.paged_attention(q, k2, v2, tab, kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p,rows,n,n_bits", BITSERIAL_GRID,
+                         ids=_ids(BITSERIAL_GRID))
+def test_bitserial_kernel_matches_plain(cuda_device, m, p, rows, n, n_bits):
+    x, gp, gm = _on(cuda_device, *bitserial_case(m, p, rows, n, n_bits))
+    lo, hi = (torch.tensor(v, device=cuda_device) for v in BITSERIAL_RANGE)
+    kw = dict(n_bits=n_bits, adc_lo=lo, adc_hi=hi, adc_bits=8,
+              gain=BITSERIAL_GAIN)
+    before = t_fused.LAUNCHES["analog_mvm_bitserial"]
+    y = t_ops.analog_mvm_bitserial(x, gp, gm, **kw)
+    y_ref = t_ops.analog_mvm_bitserial(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["analog_mvm_bitserial"] == before + 1
+    res = tolerance.bitserial_check(y, y_ref, x, gp, gm, lo, hi,
+                                    BITSERIAL_GAIN, adc_bits=8, n_bits=n_bits)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_paged_kernel_server_agrees_with_decode_lm(cuda_device):
+    """The smoke qwen1.5-4b (weights from a seed, an analog pack on the
+    fused kernel) served through ``PagedServeRuntime(backend="kernel")``
+    with prefix hits: the paged-attention kernel launches once per layer
+    per decode step, and every request equals ``decode_lm`` except at a
+    near tie (top-2 logit gap under 1e-4 of the logit scale)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (PagedServeRuntime, calibrate_lm, decode_lm,
+                                   program_lm)
+
+    cfg = get_smoke_config("qwen1.5-4b")
+    params = T.init_params(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    spec = A.design_a(error=E.state_proportional(0.05), fused="kernel")
+    pack = calibrate_lm(cfg, params, program_lm(cfg, params, spec, seed=5),
+                        torch.as_tensor(rng.integers(0, cfg.vocab, (4, 16)),
+                                        device=cuda_device))
+    shared = rng.integers(0, cfg.vocab, size=8)
+    reqs = [(np.concatenate([shared, rng.integers(0, cfg.vocab, size=n)])
+             .astype(np.int32), m) for n, m in ((4, 5), (6, 4), (2, 6),
+                                                 (5, 3))]
+    rt = PagedServeRuntime(cfg, params, pack=pack, max_slots=2, max_len=24,
+                           page_size=4, backend="kernel")
+    t_fused.reset_launch_counts()
+    uids = [rt.submit(p, max_new_tokens=m) for p, m in reqs]
+    outs = rt.run()
+    rt.check()
+    steps = rt.stats["decode_steps"]
+    assert rt.stats["prefix_hits"] >= 1
+    assert t_fused.LAUNCHES["paged_attention"] == cfg.n_layers * steps
+    assert t_fused.LAUNCHES["flash_decode"] == 0
+    for (p, m), uid in zip(reqs, uids):
+        got = outs[uid]
+        ref = decode_lm(cfg, params, torch.as_tensor(p, device=cuda_device)
+                        [None], m, pack=pack)[0].cpu().numpy()
+        diff = np.nonzero(ref != got)[0]
+        if diff.size:
+            seq = torch.as_tensor(np.concatenate([p, ref[:diff[0]]]),
+                                  device=cuda_device)[None]
+            lg = T.forward(cfg, params, seq, pack=pack)[0][0, -1]
+            top2 = torch.topk(lg, 2).values
+            assert float(top2[0] - top2[1]) < 1e-4 * float(lg.abs().max())
