@@ -18,8 +18,12 @@ lines:
    library call computing the same function or its dot part (yardstick
    only; no PyTorch call solves a bit line, so the parasitic kernels have
    none); each fused site is also checked and timed at a full prefill
-   bucket (4 slots x the cache length); the bit-line kernel, which runs
-   only in calibration, is held in phase 5 at the shapes that gives it;
+   bucket (4 slots x the cache length); the fused and legacy Design-A
+   kernels must equal their plain versions to the bit at both row counts,
+   and are timed on the device alone (a CUDA graph of ten launches, as are
+   their torch.matmul yardsticks) beside the wrapper's time per call; the
+   bit-line kernel, which runs only in calibration, is held in phase 5 at
+   the shapes that gives it;
 3. main path — qwen1.5-4b at its published width (weights from a seed,
    depth cut to ``--layers``, default 4 of 40) programmed with Design A
    under 5% state-proportional error and ``fused="kernel"``, calibrated,
@@ -138,6 +142,35 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time(fn, reps: int = 10, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events, so the
+    host's work per call (a wrapper's checks and casts, ``ctypes``) is not
+    timed.  ``fn``'s operands must already lie on the card."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     """Least time for the work: (ms, "bytes" or "operations")."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
@@ -203,13 +236,16 @@ def full_width_site(torch, A, E, k: int, n: int, ms, seed: int):
 def fused_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
                      prefill_m: int) -> dict:
     """The decode shapes of one qwen1.5-4b step (M = 4 rows), and the same
-    sites at a full prefill bucket (M = ``prefill_m`` rows)."""
+    sites at a full prefill bucket (M = ``prefill_m`` rows): each call
+    equal to its plain version to the bit and within the bound, timed on
+    the device alone (a CUDA graph of ten launches) beside the wrapper's
+    time per call (CUDA events around ten calls, host work included)."""
     d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
     shapes = [("wq", d, cfg.n_heads * cfg.hd, 4 * n_layers),
               ("w_gate", d, ff, 2 * n_layers),
               ("w_down", ff, d, n_layers),
               ("head", d, vocab, 1)]
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "wrapper_ms": 0.0,
            "max_abs_err": 0.0, "flips": 0, "bytes": 0, "flops": 0}
 
     def check(name, x, gp, gm, kw):
@@ -222,6 +258,9 @@ def fused_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
         if not r["ok"] or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"fused_mvm {name} M={x.shape[0]} outside "
                                  f"the bound: {r}")
+        if not torch.equal(y, y_ref):
+            raise AssertionError(f"fused_mvm {name} M={x.shape[0]} is not "
+                                 f"its plain version to the bit")
         return r
 
     for i, (name, k, n, per_step) in enumerate(shapes):
@@ -232,8 +271,12 @@ def fused_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
             kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=7,
                       n_bits=None, scale=scale)
             r = check(name, x, gp, gm, kw)
-            ms = cuda_time(lambda: ops.fused_mvm(x, gp, gm, backend="kernel",
-                                                 **kw), reps=10)
+
+            def call():
+                return ops.fused_mvm(x, gp, gm, backend="kernel", **kw)
+
+            ms = graph_time(call)
+            wrapper = cuda_time(call, reps=10)
             m, p, rows = x.shape
             n_bytes = 4 * (x.numel() + gp.numel() + gm.numel() + 3 + m * n)
             n_flops = 2 * m * p * rows * n + p * rows * n
@@ -241,27 +284,35 @@ def fused_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
             tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
             tot["flips"] += r["flips"]
             if j:      # the prefill bucket: kernel time against its bound
-                lines.append(f"prefill M={m}: kernel {ms:.4f} ms  bound "
-                             f"{b_ms:.4f} ms ({b_by})  max_abs_err "
-                             f"{r['max_abs_err']:.3e}  flips {r['flips']}")
+                lines.append(f"prefill M={m}: kernel {ms:.4f} ms (device; "
+                             f"wrapper {wrapper:.4f} ms)  bound {b_ms:.4f} ms "
+                             f"({b_by})  max_abs_err {r['max_abs_err']:.3e}  "
+                             f"flips {r['flips']}  equal to plain")
                 continue
             plain = cuda_time(lambda: ops.fused_mvm(
                 x, gp, gm, backend="oracle", **kw), reps=3, warmup=1)
             xp, g0 = x.permute(1, 0, 2).contiguous(), gp[0]
-            lib = cuda_time(lambda: torch.matmul(xp, g0), reps=10)
+            lib = graph_time(lambda: torch.matmul(xp, g0))
             lines.append(f"M={m} P={p} rows={rows} N={n} x{per_step}/step  "
-                         f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
-                         f"{b_ms:.4f} ms  torch.matmul(dot only) {lib:.4f} "
-                         f"ms  max_abs_err {r['max_abs_err']:.3e}  flips "
-                         f"{r['flips']}")
+                         f"kernel {ms:.4f} ms (device; wrapper {wrapper:.4f} "
+                         f"ms)  plain {plain:.4f} ms  bound {b_ms:.4f} ms  "
+                         f"torch.matmul(dot only) {lib:.4f} ms  max_abs_err "
+                         f"{r['max_abs_err']:.3e}  flips {r['flips']}  equal "
+                         f"to plain")
             tot["ms"] += ms * per_step
+            tot["wrapper_ms"] += wrapper * per_step
             tot["plain_ms"] += plain * per_step
             tot["bytes"] += n_bytes * per_step
             tot["flops"] += n_flops * per_step
             tot["library_ms"] += lib * per_step
         print(f"fused_mvm {name}: " + "; ".join(lines), flush=True)
         del gp, gm, inputs
+        torch.cuda.empty_cache()
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["flops"])
+    print(f"fused_mvm per decode step: {tot['ms']:.4f} ms on the device "
+          f"(wrapper {tot['wrapper_ms']:.4f} ms), bound {tot['bound_ms']:.4f} "
+          f"ms ({tot['bound_by']}), torch.matmul {tot['library_ms']:.4f} ms",
+          flush=True)
     return tot
 
 
@@ -384,15 +435,19 @@ def sweep_ops(systems: int, rows: int):
     return systems * (rows * (6 + 2 * DIV_FLOPS) + DIV_FLOPS)
 
 
-def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int) -> dict:
+def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
+                         prefill_m: int) -> dict:
     """The three serving kernels of paths P1 and P2 at the sites of one
     qwen1.5-4b decode step (M = 4 token rows, Design A): each against its
     plain version, with its time, the plain version's, its bound and, for
     the legacy Design-A kernel, the dot as one torch.matmul.  Times are
     summed over a step's sites (wq's shape 4 per layer, w_gate's 2,
-    w_down's 1, the head once).  The bit-line kernel runs only in path P2's
-    calibration and is held there, at the shapes that gives it
-    (:func:`bitline_at_calibration`)."""
+    w_down's 1, the head once).  The legacy Design-A kernel must equal its
+    plain version to the bit, here and at a full prefill bucket (M =
+    ``prefill_m``), and is timed on the device alone (a CUDA graph of ten
+    launches, as is its torch.matmul) beside the wrapper's time per call.
+    The bit-line kernel runs only in path P2's calibration and is held
+    there, at the shapes that gives it (:func:`bitline_at_calibration`)."""
     from repro_torch.core.adc import range_from_samples
     from repro_torch.kernels.ref import fused_pre_adc, parasitic_pre_adc
 
@@ -405,14 +460,14 @@ def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int) -> dict:
     tot = {nm: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0,
                 "max_abs_err": 0.0, "flips": 0, "library_ms": None}
            for nm in names}
-    tot["analog_mvm_diff"]["library_ms"] = 0.0
+    tot["analog_mvm_diff"].update(library_ms=0.0, wrapper_ms=0.0)
     spec = A.design_a(error=E.state_proportional(0.05))
     m_ = spec.mapping
     gain = (m_.levels_per_cell - 1) / (1.0 - m_.g_min)
     nb = spec.n_planes
     m = 4
     for i, (site, k, n, per_step) in enumerate(shapes):
-        gp, gm, inputs = full_width_site(torch, A, E, k, n, (m,),
+        gp, gm, inputs = full_width_site(torch, A, E, k, n, (m, prefill_m),
                                          SEED + 200 + i)
         x, lo_lin, hi_lin, scale = inputs[0]
         p, rows = x.shape[1], x.shape[2]
@@ -458,7 +513,18 @@ def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int) -> dict:
             r = check(y, y_ref)
             if not r["ok"] or not bool(torch.isfinite(y).all()):
                 raise AssertionError(f"{nm} at {site} outside the bound: {r}")
-            ms = cuda_time(lambda: call("kernel"), reps=5, warmup=1)
+            legacy = nm == "analog_mvm_diff"
+            if legacy:
+                if not torch.equal(y, y_ref):
+                    raise AssertionError(f"{nm} at {site} M={m} is not its "
+                                         f"plain version to the bit")
+                ms = graph_time(lambda: call("kernel"))
+                wrapper = cuda_time(lambda: call("kernel"), reps=10)
+                t_wrap = f" (device; wrapper {wrapper:.4f} ms)"
+                tot[nm]["wrapper_ms"] += wrapper * per_step
+            else:
+                ms = cuda_time(lambda: call("kernel"), reps=5, warmup=1)
+                t_wrap = ""
             t0 = time.perf_counter()
             call("oracle")
             torch.cuda.synchronize()
@@ -472,21 +538,58 @@ def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int) -> dict:
             t["bytes"] += n_bytes * per_step
             t["flops"] += n_flops * per_step
             lib = "  library: none (no PyTorch call solves a bit line)"
-            if nm == "analog_mvm_diff":
+            if legacy:
                 xpart, gd = x.permute(1, 0, 2).contiguous(), gp[0] - gm[0]
-                lib_ms = cuda_time(lambda: torch.matmul(xpart, gd), reps=10)
+                lib_ms = graph_time(lambda: torch.matmul(xpart, gd))
                 t["library_ms"] += lib_ms * per_step
                 lib = f"  torch.matmul(dot only) {lib_ms:.4f} ms"
-            lines.append(f"{nm} kernel {ms:.4f} ms  plain {plain:.1f} ms  "
-                         f"bound {b_ms:.4f} ms ({b_by}){lib}  max_abs_err "
-                         f"{r['max_abs_err']:.3e}")
+                del gd
+            lines.append(f"{nm} kernel {ms:.4f} ms{t_wrap}  plain "
+                         f"{plain:.1f} ms  bound {b_ms:.4f} ms ({b_by}){lib}  "
+                         f"max_abs_err {r['max_abs_err']:.3e}"
+                         + ("  equal to plain" if legacy else ""))
+        lines.append(legacy_prefill(torch, ops, tol, gp[0], gm[0], inputs[1],
+                                    gain))
         print(f"parasitic/legacy {site} (M={m} P={p} rows={rows} N={n} "
               f"x{per_step}/step): " + "; ".join(lines), flush=True)
         del gp, gm, inputs
         torch.cuda.empty_cache()
     for t in tot.values():
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+    t = tot["analog_mvm_diff"]
+    print(f"analog_mvm_diff per decode step: {t['ms']:.4f} ms on the device "
+          f"(wrapper {t['wrapper_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), torch.matmul {t['library_ms']:.4f} ms",
+          flush=True)
     return tot
+
+
+def legacy_prefill(torch, ops, tol, gp, gm, inputs, gain) -> str:
+    """The legacy Design-A kernel at a prefill bucket: equal to its plain
+    version to the bit and within the bound, timed on the device alone
+    beside the wrapper's time per call."""
+    x, lo, hi, _ = inputs
+    kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, gain=gain)
+    y = ops.analog_mvm(x, gp, gm, **kw)
+    y_ref = ops.analog_mvm(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    r = tol.analog_mvm_check(y, y_ref, x, gp, gm, lo, hi, gain, adc_bits=8)
+    m, p, rows = x.shape
+    if not r["ok"] or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"analog_mvm_diff M={m} N={gp.shape[-1]} "
+                             f"outside the bound: {r}")
+    if not torch.equal(y, y_ref):
+        raise AssertionError(f"analog_mvm_diff M={m} N={gp.shape[-1]} is not "
+                             f"its plain version to the bit")
+    del y, y_ref
+    ms = graph_time(lambda: ops.analog_mvm(x, gp, gm, **kw))
+    wrapper = cuda_time(lambda: ops.analog_mvm(x, gp, gm, **kw), reps=10)
+    n = gp.shape[-1]
+    b_ms, b_by = bound_ms(4 * (x.numel() + gp.numel() + gm.numel() + 2
+                               + m * n), 2 * m * p * rows * n + p * rows * n)
+    return (f"analog_mvm_diff prefill M={m}: kernel {ms:.4f} ms (device; "
+            f"wrapper {wrapper:.4f} ms)  bound {b_ms:.4f} ms ({b_by})  "
+            f"max_abs_err {r['max_abs_err']:.3e}  equal to plain")
 
 
 def bitline_at_calibration(torch, ops, tol, seen: dict, r_hat) -> dict:
@@ -1213,7 +1316,8 @@ def main() -> int:
           f"{len(tol.LEGACY_GRID)} legacy cases within the bound; max_abs_err "
           f"{pgrid} ({time.perf_counter() - t:.1f} s)", flush=True)
     t = time.perf_counter()
-    par = parasitic_full_width(torch, A, E, ops, tol, cfg, args.layers)
+    par = parasitic_full_width(torch, A, E, ops, tol, cfg, args.layers,
+                               prefill_m=4 * MAX_LEN)
     print(f"parasitic/legacy full-width checks in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()

@@ -12,6 +12,12 @@ one-code ADC flips only where the pre-ADC value lies within 4 ulp of a
 rounding edge; bit-line currents within 2 ulp of ``|I|``; flash decode and
 paged attention within ``4 ulp + kv_len * eps * max|v|``, and the paged
 kernel equal to the flash-decode kernel on the gathered view to the bit.
+The fused MVM kernel (both input modes) and the legacy Design-A kernel
+are also held to their plain versions to the bit (``torch.equal``), on
+the grids and on the edges of their tiling: row counts M in {1, 4, 40,
+128} (row tiles of 4, 16 and 128), partitions P in {1, 3, 6, 9} (9 runs
+two rounds of an 8-block cluster), N in {7, 130, 2560} (N % 4 != 0 takes
+the 4-byte copies) and array rows in {33, 854, 1152} (ragged stages).
 The grids (``tolerance.*_GRID``) are those of ``tests/test_kernels.py``,
 shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_parasitics.py``, ``tests/test_torch_paged.py`` and
@@ -66,6 +72,7 @@ def test_fused_mvm_kernel_matches_plain(cuda_device, m, p, s, rows, n, n_bits,
     r = tolerance.fused_mvm_check(y, y_ref, *t, kw["scale"], adc_bits=8,
                                   cell_bits=cell_bits, n_bits=n_bits)
     assert r["ok"], r
+    assert torch.equal(y, y_ref)
 
 
 @pytest.mark.cuda
@@ -89,7 +96,9 @@ def test_flash_decode_kernel_matches_plain(cuda_device, b, s, kv, g, hd,
 @pytest.mark.parametrize("n_bits", [None, 7])
 def test_fused_mvm_kernel_is_batch_invariant(cuda_device, n_bits):
     """Each output row is the same bits whichever rows share the launch,
-    across the kernel's row tiles (M = 40 spans three 16-row tiles)."""
+    across the kernel's row tiles (M = 40 runs in one 128-row tile, or
+    three 16-row tiles in bit-serial mode; a single row in a 4-row tile;
+    rows 5:21 in a 16-row tile)."""
     x, gp, gm, lo, hi = (torch.as_tensor(a, device=cuda_device)
                          for a in fused_case(40, 2, 2, 96, 70, seed=3))
     kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=2, n_bits=n_bits,
@@ -188,6 +197,89 @@ def test_legacy_kernel_matches_plain(cuda_device, m, p, rows, n, adc_bits):
     res = tolerance.analog_mvm_check(y, y_ref, x, gp, gm, lo, hi, LEGACY_GAIN,
                                      adc_bits=adc_bits)
     assert res["ok"], res
+    assert torch.equal(y, y_ref)
+
+
+#: (m, p, s, rows, n) cases on the edges of the streaming MVM kernel's
+#: tiling: every M tile (1, 4 -> 4 rows; 40 -> 128; 128), cluster sizes
+#: 1, 3, 6 and 9 partitions (two rounds of 8), N % 4 != 0 and a full tile,
+#: ragged stages of 32 array rows, and two two-slice cases
+MVM_EDGE_GRID = [(1, 1, 1, 33, 7), (1, 6, 1, 854, 2560), (1, 9, 1, 33, 130),
+                 (4, 3, 1, 854, 2560), (4, 9, 1, 1152, 7),
+                 (4, 6, 2, 33, 130), (40, 6, 1, 1152, 130),
+                 (40, 1, 1, 33, 2560), (40, 9, 2, 854, 7),
+                 (128, 9, 1, 33, 2560), (128, 3, 1, 854, 130),
+                 (128, 1, 1, 1152, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["analog", "bitserial", "legacy"])
+@pytest.mark.parametrize("m,p,s,rows,n", MVM_EDGE_GRID,
+                         ids=_ids(MVM_EDGE_GRID))
+def test_mvm_kernels_equal_plain_on_tile_edges(cuda_device, m, p, s, rows, n,
+                                               mode):
+    """The fused kernel in both input modes and the legacy Design-A kernel
+    equal their plain versions to the bit on the edges of their tiling."""
+    x, gp, gm, lo, hi = _on(cuda_device, *fused_case(m, p, s, rows, n,
+                                                     seed=m + p + rows))
+    if mode == "legacy":
+        x = x.clamp(-127, 127)
+        kw = dict(adc_lo=lo[0], adc_hi=hi[0], adc_bits=8, gain=LEGACY_GAIN)
+        name, f, gp, gm = "analog_mvm_diff", t_ops.analog_mvm, gp[0], gm[0]
+    else:
+        kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=2,
+                  n_bits=7 if mode == "bitserial" else None,
+                  scale=torch.tensor(3e-4, device=cuda_device))
+        name, f = "fused_mvm", t_ops.fused_mvm
+    before = t_fused.LAUNCHES[name]
+    y = f(x, gp, gm, **kw)
+    y_ref = f(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES[name] == before + 1
+    assert y.shape == (m, n) and bool(torch.isfinite(y).all())
+    assert torch.equal(y, y_ref)
+
+
+#: row slices of a 128-row batch that straddle the streaming kernel's row
+#: tiles (4, 16 and 128 rows, and 16 in bit-serial mode)
+_STRADDLE = [(0, 4), (2, 6), (3, 19), (14, 30), (15, 33), (60, 128),
+             (1, 128)]
+
+
+def _rows_invariant(f, x, gp, gm, kw):
+    """``f`` on a 128-row batch, on each of its rows alone, on the slices
+    of ``_STRADDLE`` and inside a 136-row batch gives the same bits."""
+    full = f(x, gp, gm, **kw)
+    for i in range(x.shape[0]):
+        assert torch.equal(f(x[i:i + 1], gp, gm, **kw), full[i:i + 1]), i
+    for a, b in _STRADDLE:
+        assert torch.equal(f(x[a:b], gp, gm, **kw), full[a:b]), (a, b)
+    more = torch.cat([x, x[:8].flip(0)])
+    assert torch.equal(f(more, gp, gm, **kw)[:128], full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits", [None, 7])
+def test_fused_mvm_kernel_is_batch_invariant_at_prefill_bucket(cuda_device,
+                                                               n_bits):
+    """A prefill bucket of 128 rows split into single rows and into slices
+    across the row tiles: every row the same bits (three partitions, so a
+    three-block cluster, and two slices)."""
+    x, gp, gm, lo, hi = _on(cuda_device, *fused_case(128, 3, 2, 96, 70,
+                                                     seed=4))
+    kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=2, n_bits=n_bits,
+              scale=torch.tensor(3e-4, device=cuda_device))
+    _rows_invariant(t_ops.fused_mvm, x, gp, gm, kw)
+
+
+@pytest.mark.cuda
+def test_legacy_kernel_is_batch_invariant_at_prefill_bucket(cuda_device):
+    """The legacy Design-A kernel on the same 128-row batch split into
+    single rows and slices across the row tiles."""
+    x, gp, gm, lo, hi = _on(cuda_device, *fused_case(128, 3, 1, 96, 70,
+                                                     seed=4))
+    kw = dict(adc_lo=lo[0], adc_hi=hi[0], adc_bits=8, gain=LEGACY_GAIN)
+    _rows_invariant(t_ops.analog_mvm, x.clamp(-127, 127), gp[0], gm[0], kw)
 
 
 @pytest.mark.cuda
@@ -195,7 +287,8 @@ def test_legacy_kernel_matches_plain(cuda_device, m, p, rows, n, adc_bits):
                                    "analog_mvm_parasitic", "analog_mvm"])
 def test_new_mvm_kernels_are_batch_invariant(cuda_device, which):
     """Each output row is the same bits whichever rows share the launch
-    (M = 40 spans three 16-row tiles of the legacy kernel)."""
+    (M = 40 runs in one 128-row tile of the legacy kernel, a single row in
+    a 4-row tile, rows 5:21 in a 16-row tile)."""
     x, gp, gm, lo, hi = _on(cuda_device, *fused_case(40, 2, 1, 70, 45,
                                                      seed=3))
     x = x.clamp(-127, 127)
