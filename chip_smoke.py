@@ -44,8 +44,9 @@ lines:
    Design-A kernel), each recalibrated and serving three requests that
    must equal ``decode_lm``; one prefill's logits must agree with the same
    pack on the legacy kernels' plain versions, and the bit-line kernel is
-   held against its plain version, and timed, on one call of each shape
-   the calibration gave it (its times summed over one calibration);
+   held against its plain version (to the bit), and timed, on one call of
+   each shape the calibration gave it (its times summed over one
+   calibration);
 6. path PG — paged serving with prefix sharing: the main path's programmed
    and calibrated pack served through ``PagedServeRuntime(page_size=8,
    max_slots=4, max_len=32)``, the main path's five requests and three
@@ -63,8 +64,10 @@ lines:
    entry point (``ops.analog_mvm_bitserial``) is driven once at each of
    wq, w_gate, w_down and the head of the main path's pack (slice 0 of its
    conductances, 4 quantized activation rows, 7 bits), counts reset just
-   before and read just after; it is held against its plain version on
-   ``tolerance.BITSERIAL_GRID`` and at those four sites, and timed there.
+   before and read just after; it is held against its plain version (to
+   the bit) on ``tolerance.BITSERIAL_GRID`` and at those four sites, and
+   timed there on the device alone (a CUDA graph of ten launches, as is
+   its ``torch.matmul`` yardstick) beside the wrapper's time per call.
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON; the
@@ -402,9 +405,12 @@ def check_parasitic_grids(torch, ops, tol) -> dict:
     for case in tol.BITLINE_GRID:
         m, k, n, r_hat = case
         x, g = on(*tol.bitline_case(m, k, n))
-        hold("bitline_mvm", case, tol.bitline_check(
-            ops.bitline_mvm(g, x, r_hat),
-            ops.bitline_mvm(g, x, r_hat, backend="oracle")))
+        y = ops.bitline_mvm(g, x, r_hat)
+        y_ref = ops.bitline_mvm(g, x, r_hat, backend="oracle")
+        hold("bitline_mvm", case, tol.bitline_check(y, y_ref))
+        if not torch.equal(y, y_ref):
+            raise AssertionError(f"bitline_mvm grid case {case} is not its "
+                                 f"plain version to the bit")
     lo, hi = (torch.tensor(v, device=DEVICE) for v in tol.LEGACY_RANGE)
     for case in tol.LEGACY_PARASITIC_GRID:
         x, gp, gm = on(*tol.legacy_case(*case))
@@ -596,8 +602,9 @@ def bitline_at_calibration(torch, ops, tol, seen: dict, r_hat) -> dict:
     """The bit-line kernel against its plain version on the inputs path P2's
     calibration gave it: ``seen`` maps each (arrays, plane rows) shape to
     its first call's operands and the calibration's launches at that shape.
-    Each is checked once, timed, and its times and bound are summed over
-    those launches (one calibration)."""
+    Each is checked once (within the bound and equal to the bit), timed,
+    and its times and bound are summed over those launches (one
+    calibration)."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0,
            "max_abs_err": 0.0, "library_ms": None}
     for (g, x, n_calls) in seen.values():
@@ -609,12 +616,17 @@ def bitline_at_calibration(torch, ops, tol, seen: dict, r_hat) -> dict:
         plain = (time.perf_counter() - t0) * 1e3
         r = tol.bitline_check(y, y_ref)
         finite = bool(torch.isfinite(y).all())
+        equal = bool(torch.equal(y, y_ref))
         del y, y_ref
         n_g, k, n = g.shape
         m = x.shape[1]
         if not r["ok"] or not finite:
             raise AssertionError(f"bitline_mvm at g {tuple(g.shape)}, x "
                                  f"{tuple(x.shape)} outside the bound: {r}")
+        if not equal:
+            raise AssertionError(f"bitline_mvm at g {tuple(g.shape)}, x "
+                                 f"{tuple(x.shape)} is not its plain version "
+                                 f"to the bit")
         ms = cuda_time(lambda: ops.bitline_mvm(g, x, r_hat), reps=3,
                        warmup=1)
         n_bytes = 4 * (x.numel() + g.numel() + n_g * m * n)
@@ -624,7 +636,7 @@ def bitline_at_calibration(torch, ops, tol, seen: dict, r_hat) -> dict:
               f"{tuple(x.shape)} x{n_calls}/calibration  kernel {ms:.4f} ms  "
               f"plain {plain:.1f} ms  bound {b_ms:.4f} ms ({b_by})  library: "
               f"none (no PyTorch call solves a bit line)  max_abs_err "
-              f"{r['max_abs_err']:.3e}", flush=True)
+              f"{r['max_abs_err']:.3e}  equal to plain", flush=True)
         tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
         tot["ms"] += ms * n_calls
         tot["plain_ms"] += plain * n_calls
@@ -736,7 +748,7 @@ def paged_checks(torch, ops, tol, cfg, n_layers: int) -> dict:
 
 def check_bitserial_grid(torch, ops, tol) -> float:
     """The bit-serial kernel against its plain version on the CPU test
-    grid; returns the largest error."""
+    grid, within the bound and to the bit; returns the largest error."""
     worst = 0.0
     lo, hi = (torch.tensor(v, device=DEVICE) for v in tol.BITSERIAL_RANGE)
     for case in tol.BITSERIAL_GRID:
@@ -745,13 +757,14 @@ def check_bitserial_grid(torch, ops, tol) -> float:
                      for a in tol.bitserial_case(m, p, rows, n, nb))
         kw = dict(n_bits=nb, adc_lo=lo, adc_hi=hi, adc_bits=8,
                   gain=tol.BITSERIAL_GAIN)
-        r = tol.bitserial_check(
-            ops.analog_mvm_bitserial(x, gp, gm, **kw),
-            ops.analog_mvm_bitserial(x, gp, gm, backend="oracle", **kw),
-            x, gp, gm, lo, hi, tol.BITSERIAL_GAIN, adc_bits=8, n_bits=nb)
-        if not r["ok"]:
+        y = ops.analog_mvm_bitserial(x, gp, gm, **kw)
+        y_ref = ops.analog_mvm_bitserial(x, gp, gm, backend="oracle", **kw)
+        r = tol.bitserial_check(y, y_ref, x, gp, gm, lo, hi,
+                                tol.BITSERIAL_GAIN, adc_bits=8, n_bits=nb)
+        if not r["ok"] or not torch.equal(y, y_ref):
             raise AssertionError(f"analog_mvm_bitserial grid case {case} "
-                                 f"outside the bound: {r}")
+                                 f"outside the bound or not its plain "
+                                 f"version to the bit: {r}")
         worst = max(worst, r["max_abs_err"])
     torch.cuda.synchronize()
     return worst
@@ -1185,7 +1198,9 @@ def bitserial_full_width(torch, ops, tol, cfg, pack, kern_fused):
     the ADC range from the plain version's per-bit pre-ADC values.  The op
     entry point is driven once per site with the counts reset just before
     and read just after; then each site is held against its plain version
-    and timed beside its plain version, its bound and ``torch.matmul`` of
+    (within the bound and to the bit) and timed on the device alone (a
+    CUDA graph of ten launches, as is its yardstick) beside the wrapper's
+    time per call, its plain version, its bound and ``torch.matmul`` of
     the 7 stacked bit planes."""
     from repro_torch.core.adc import range_from_samples
     from repro_torch.core.quant import quantize_acts
@@ -1233,9 +1248,16 @@ def bitserial_full_width(torch, ops, tol, cfg, pack, kern_fused):
         if not r["ok"] or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"analog_mvm_bitserial at {name} outside "
                                  f"the bound: {r}")
+        if not torch.equal(y, y_ref):
+            raise AssertionError(f"analog_mvm_bitserial at {name} is not its "
+                                 f"plain version to the bit")
         del y_ref
-        ms = cuda_time(lambda: ops.analog_mvm_bitserial(x, gp, gm, **kw),
-                       reps=5, warmup=1)
+
+        def call():
+            return ops.analog_mvm_bitserial(x, gp, gm, **kw)
+
+        ms = graph_time(call)
+        wrapper = cuda_time(call, reps=10)
         plain = cuda_time(lambda: ops.analog_mvm_bitserial(
             x, gp, gm, backend="oracle", **kw), reps=2, warmup=1)
         p, rows, n = gp.shape
@@ -1244,16 +1266,17 @@ def bitserial_full_width(torch, ops, tol, cfg, pack, kern_fused):
                             for b in range(nb)], dim=0)    # (7 M, P, rows)
         planes = planes.permute(1, 0, 2).contiguous()
         gd = gp - gm
-        lib = cuda_time(lambda: torch.matmul(planes, gd), reps=10)
+        lib = graph_time(lambda: torch.matmul(planes, gd))
         del planes, gd
         n_bytes = 4 * (x.numel() + gp.numel() + gm.numel() + 2 + m * n)
         n_flops = 2 * m * nb * p * rows * n
         b_ms, b_by = bound_ms(n_bytes, n_flops)
         print(f"analog_mvm_bitserial {name} (M={m} P={p} rows={rows} N={n} "
-              f"n_bits={nb}): kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
-              f"{b_ms:.4f} ms ({b_by})  torch.matmul(7 stacked planes) "
-              f"{lib:.4f} ms  max_abs_err {r['max_abs_err']:.3e}  flips "
-              f"{r['flips']}", flush=True)
+              f"n_bits={nb}): kernel {ms:.4f} ms (device; wrapper "
+              f"{wrapper:.4f} ms)  plain {plain:.4f} ms  bound {b_ms:.4f} ms "
+              f"({b_by})  torch.matmul(7 stacked planes) {lib:.4f} ms  "
+              f"max_abs_err {r['max_abs_err']:.3e}  flips {r['flips']}  "
+              f"equal to plain", flush=True)
         tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
         tot["ms"] += ms
         tot["plain_ms"] += plain

@@ -33,6 +33,10 @@ from repro_torch.kernels.fused import (LAUNCHES, MAX_BITS, _check_launch,
 _BITLINE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DIFF_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                              ctypes.c_void_p])
+#: plane rows one bitline_mvm block sweeps (``kTileM`` in bitline.cu); the
+#: grid's y dimension counts these tiles, its z dimension the arrays
+_BITLINE_TILE_M = 32
+_GRID_LIMIT = 65535
 
 
 def bitline_mvm_cuda(
@@ -52,9 +56,10 @@ def bitline_mvm_cuda(
     if k2 != k or n_x < 1 or n_g % n_x:
         raise ValueError(f"shape mismatch: g {tuple(g.shape)}, x "
                          f"{tuple(x.shape)}")
-    if n_g > 65535 or (m + 7) // 8 > 65535:
-        raise ValueError(f"bitline_mvm takes at most 65535 arrays and "
-                         f"524280 plane rows, got {n_g} and {m}")
+    if n_g > _GRID_LIMIT or -(-m // _BITLINE_TILE_M) > _GRID_LIMIT:
+        raise ValueError(f"bitline_mvm takes at most {_GRID_LIMIT} arrays "
+                         f"and {_GRID_LIMIT * _BITLINE_TILE_M} plane rows, "
+                         f"got {n_g} and {m}")
     r = _scalar(r_hat, dev)
     out = torch.empty((n_g, m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:

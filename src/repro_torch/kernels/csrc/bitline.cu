@@ -13,23 +13,51 @@
 //   for every input bit, the analog bit fold, one value-unit ADC per
 //   partition, * gain, and the sum over partitions in code units.
 //
-// What bounds them on the H100: the divisions, two IEEE divisions per row
-// of every system (see fused_mvm_parasitic.cu); chip_smoke.py states how
-// its bound counts one.
+// What bounds bitline_mvm on the H100: instruction issue.  A row of a
+// sweep is three products, three adds and two IEEE divisions, each
+// rounded as written (analog.cuh), and it waits on the row before, so a
+// system's rows run one after another and the parallelism is across
+// systems.  nvcc expands each __fdiv_rn into a reciprocal on the
+// special-function unit (MUFU.RCP), five FFMAs, a range check (FCHK) and
+// a branch around a slow-path call fenced by a convergence barrier
+// (BSSY/BSYNC): 10 instructions.  One system per thread, with its
+// predicated loads and their 64-bit addresses, issued 49 instructions a
+// row step, where the bound (chip_smoke.sweep_ops, a division counted as
+// 16 flops) allows 19.
 //
-// Design:
-// * One thread per system.  bitline_mvm: a block is 32 columns x 8 plane
-//   rows; the plane rows' x tile is staged in shared memory a chunk of
-//   array rows at a time, each conductance row is one coalesced load per
-//   warp and is shared by the block's 8 warps through L1; each thread
-//   loads 16 rows of its column before it sweeps them (analog.cuh
-//   load_rows), so the sweep does not wait out a load per row.
-//   analog_bitline_diff: the block layout and bit fold of
-//   fused_mvm_parasitic.cu (analog.cuh bit_fold), one activation row per
-//   block, partitions walked inside the block.
-// * r_hat and gain are runtime arguments, never compiled in.
-// * Every operation is rounded as written (analog.cuh), so each kernel
-//   equals its plain version in kernels/ref.py to the bit.
+// Design of bitline_mvm:
+// * A thread sweeps kSys = 4 plane rows of one column together, row by
+//   row: each conductance it loads, its address and its g * r serve four
+//   systems.  A block is 32 columns x 8 threads x 4 plane rows.
+// * c = -1 / denom is -__frcp_rn(denom): round-to-nearest is symmetric,
+//   so the negated correctly rounded reciprocal is the correctly rounded
+//   quotient of -1.  Its expansion trades FCHK and three FFMAs for an
+//   FADD and an integer range check, and spares the register moves the
+//   division's slow-path call adds.  d's division stays __fdiv_rn, since
+//   multiplying by a reciprocal would change the bits.  A row step
+//   issues 26.5 instructions (tools/bitline_bench.py --sass).
+// * ptxas does not move one system's division across another's
+//   slow-path branch, so each division's latency is hidden by other
+//   warps, not by the thread's other systems: kRowBatch = 8 conductance
+//   rows in registers and __launch_bounds__(256, 4) keep the kernel at
+//   64 registers, 4 blocks (32 warps) per SM.  What that spills is the x
+//   staging's addresses, reloaded once per x stage, never in the sweep.
+// * The plane rows' x tile is staged in shared memory kXRows array rows
+//   at a time; a thread reads four rows of one plane row in one 16-byte
+//   load.  The conductance rows of a batch are loaded before any is
+//   used; full batches run unrolled with no bounds test, the ragged tail
+//   of K row by row, the top row's base (1, not 2) as a loop-carried
+//   value.  Plane rows past M are zero-filled and columns past N never
+//   swept; neither is stored.
+// * Each system still runs its rows in ascending order with every
+//   operation rounded as written, so the kernel equals its plain version
+//   in kernels/ref.py to the bit; only the interleaving of independent
+//   systems changed.
+//
+// analog_bitline_diff keeps one thread per system: the block layout and
+// bit fold of fused_mvm_parasitic.cu (analog.cuh bit_fold), one activation
+// row per block, partitions walked inside the block.  r_hat and gain are
+// runtime arguments, never compiled in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,49 +68,95 @@ using namespace repro;
 
 namespace {
 
-constexpr int kPlaneRows = 8;    // plane rows per bitline_mvm block
+constexpr int kSys = 4;          // plane rows one bitline_mvm thread sweeps
+constexpr int kThreadRows = 8;   // threads along plane rows per block
+constexpr int kTileM = kSys * kThreadRows;   // plane rows per block
+constexpr int kXRows = 128;      // array rows of x staged per pass
+constexpr int kRowBatch = 8;     // conductance rows loaded before a sweep
+constexpr int kMinBlocks = 4;    // resident blocks per SM (64 registers)
 
-__global__ void __launch_bounds__(kCols * kPlaneRows)
+// One row of the Thomas forward sweep, thomas_row's arithmetic with
+// c = -1 / denom taken as the negated correctly rounded reciprocal.
+__device__ __forceinline__ void sweep_row(float& c, float& d, float grr,
+                                          float xv, float base) {
+  const float denom =
+      __fadd_rn(__fadd_rn(__fmul_rn(fabsf(xv), grr), base), c);
+  c = -__frcp_rn(denom);
+  d = __fdiv_rn(__fadd_rn(__fmul_rn(xv, grr), d), denom);
+}
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(kCols * kThreadRows, kMinBlocks)
 bitline_mvm_kernel(const float* __restrict__ x,    // (X, M, K) signed planes
                    const float* __restrict__ g,    // (G, K, N)
                    const float* __restrict__ r_p,  // (1,)
                    float* __restrict__ out,        // (G, M, N)
                    int X, int M, int K, int N) {
-  __shared__ float xs[kPlaneRows][kRowChunk];
+  __shared__ __align__(16) float xs[kTileM][kXRows];
   const int n = blockIdx.x * kCols + threadIdx.x;
-  const int m0 = blockIdx.y * kPlaneRows;
-  const int m = m0 + threadIdx.y;
+  const int m0 = blockIdx.y * kTileM;
+  const int ms = threadIdx.y * kSys;       // this thread's rows in the tile
   const int gi = blockIdx.z;
   const float* xb = x + (size_t)(gi % X) * M * K;
   const float* gb = g + (size_t)gi * K * N + n;
-  const bool ok = n < N && m < M;
+  const bool ok = n < N;
   const float r = r_p[0];
   const int tid = threadIdx.y * kCols + threadIdx.x;
 
-  float c = 0.f, d = 0.f;
-  for (int r0 = 0; r0 < K; r0 += kRowChunk) {
-    const int rc = min(kRowChunk, K - r0);
+  float c[kSys], d[kSys];
+#pragma unroll
+  for (int t = 0; t < kSys; ++t) c[t] = d[t] = 0.f;
+  float base = 1.f;                        // the top row's; 2 below it
+  for (int r0 = 0; r0 < K; r0 += kXRows) {
+    const int rc = min(kXRows, K - r0);
     __syncthreads();
-    for (int i = tid; i < kPlaneRows * kRowChunk; i += kCols * kPlaneRows) {
-      const int mm = i / kRowChunk, rr = i % kRowChunk;
+    for (int i = tid; i < kTileM * kXRows; i += kCols * kThreadRows) {
+      const int mm = i / kXRows, rr = i % kXRows;
       xs[mm][rr] = (m0 + mm < M && rr < rc)
           ? xb[(size_t)(m0 + mm) * K + r0 + rr] : 0.f;
     }
     __syncthreads();
     if (!ok) continue;
-    for (int i = 0; i < rc; i += kSweepBatch) {
-      float grow[kSweepBatch];
-      load_rows(grow, gb + (size_t)r0 * N, i, rc, N);
+    const float* gr = gb + (size_t)r0 * N;
+    int i = 0;
+    for (; i + kRowBatch <= rc; i += kRowBatch) {
+      float gv[kRowBatch];
 #pragma unroll
-      for (int j = 0; j < kSweepBatch; ++j) {
-        if (i + j >= rc) break;
-        const float xv = xs[threadIdx.y][i + j];
-        thomas_row(c, d, grow[j], r, fabsf(xv), xv,
-                   (r0 + i + j == 0) ? 1.f : 2.f);
+      for (int j = 0; j < kRowBatch; ++j)
+        gv[j] = __ldg(gr + (size_t)(i + j) * N);
+#pragma unroll
+      for (int j = 0; j < kRowBatch; j += 4) {
+        float4 xq[kSys];
+#pragma unroll
+        for (int t = 0; t < kSys; ++t)
+          xq[t] = *reinterpret_cast<const float4*>(&xs[ms + t][i + j]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float grr = __fmul_rn(gv[j + q], r);
+#pragma unroll
+          for (int t = 0; t < kSys; ++t)
+            sweep_row(c[t], d[t], grr, lane(xq[t], q), base);
+          base = 2.f;
+        }
       }
     }
+    for (; i < rc; ++i) {                  // the ragged tail of K
+      const float grr = __fmul_rn(__ldg(gr + (size_t)i * N), r);
+#pragma unroll
+      for (int t = 0; t < kSys; ++t)
+        sweep_row(c[t], d[t], grr, xs[ms + t][i], base);
+      base = 2.f;
+    }
   }
-  if (ok) out[((size_t)gi * M + m) * N + n] = __fdiv_rn(d, r);
+  if (!ok) return;
+#pragma unroll
+  for (int t = 0; t < kSys; ++t) {
+    const int m = m0 + ms + t;
+    if (m < M) out[((size_t)gi * M + m) * N + n] = __fdiv_rn(d[t], r);
+  }
 }
 
 __global__ void __launch_bounds__(kCols * 2 * kMaxBits)
@@ -121,8 +195,8 @@ analog_bitline_diff_kernel(const float* __restrict__ x,     // (M, P, R)
 extern "C" int repro_bitline_mvm(const float* x, const float* g,
                                  const float* r, float* out, int X, int G,
                                  int M, int K, int N, void* stream) {
-  dim3 grid((N + kCols - 1) / kCols, (M + kPlaneRows - 1) / kPlaneRows, G);
-  bitline_mvm_kernel<<<grid, dim3(kCols, kPlaneRows), 0,
+  dim3 grid((N + kCols - 1) / kCols, (M + kTileM - 1) / kTileM, G);
+  bitline_mvm_kernel<<<grid, dim3(kCols, kThreadRows), 0,
                        static_cast<cudaStream_t>(stream)>>>(x, g, r, out, X,
                                                             M, K, N);
   return (int)cudaGetLastError();

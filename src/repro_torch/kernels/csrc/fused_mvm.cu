@@ -71,17 +71,16 @@
 //   slice sits outside the bit fold (the S == 1 case defers it to the
 //   final multiply) -- the discipline of src/repro/kernels/fused.py.
 //
-// Design D (repro_analog_mvm_bitserial) still runs the earlier design,
-// rowwise_mvm_kernel: one thread per output column walks every partition
-// and row itself, BM = 2 rows of x per block.  It replaces
+// Design D (repro_analog_mvm_bitserial) is the same kernel with the
+// bit-serial accumulators and the legacy epilogue (NB = 8, LEGACY), the
+// row tiles of the bit-serial mode (BM 4 or 16 by M), S == 1.  It replaces
 // src/repro/kernels/analog_mvm.py::analog_mvm_bitserial_pallas (kernel
-// body _bitserial_kernel): the signed bit planes of the integer
-// activations, per partition a dot and a value-unit ADC per bit, the 2**b
-// shift-add (bits ascending, from zero), times gain, summed over
-// partitions in code units, equal to kernels/ref.py::analog_mvm_bitserial
-// to the bit.  It is bound like the rest by the conductance bytes, read
-// once per 2-row tile; with one thread per column it is short of loads in
-// flight at decode.
+// body _bitserial_kernel): per partition the dot of each signed bit plane
+// of the integer activations with g_pos - g_neg (bits past nbits masked),
+// a value-unit ADC per bit, the 2**b shift-add (bits ascending, from
+// zero), times gain, summed over partitions in code units in ascending p,
+// equal to kernels/ref.py::analog_mvm_bitserial to the bit.  It is bound
+// like the rest by the conductance bytes, read once per row tile.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,7 +93,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 // ---------------------------------------------------------------------------
-// mvm_stream_kernel: repro_fused_mvm (both modes) and repro_analog_mvm_diff
+// mvm_stream_kernel: repro_fused_mvm (both modes), repro_analog_mvm_diff and
+// repro_analog_mvm_bitserial
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;    // threads per block
@@ -413,165 +413,6 @@ int launch_stream(const float* x, const float* gp, const float* gm,
   return (int)(e != cudaSuccess ? e : last);
 }
 
-// ---------------------------------------------------------------------------
-// rowwise_mvm_kernel: repro_analog_mvm_bitserial
-// ---------------------------------------------------------------------------
-
-constexpr int kCols = 64;        // output columns per block (= threads)
-constexpr int kRowChunk = 128;   // array rows of x staged per pass
-constexpr int kBatch = 16;       // array rows of g loaded per batch
-
-template <int BM, int NB, bool LEGACY>
-__global__ void __launch_bounds__(kCols)
-rowwise_mvm_kernel(const float* __restrict__ x,      // (M, P, R)
-                   const float* __restrict__ gp,     // (S, P, R, N)
-                   const float* __restrict__ gm,     // (S, P, R, N)
-                   const float* __restrict__ lo_s,   // (S,)
-                   const float* __restrict__ hi_s,   // (S,)
-                   const float* __restrict__ scale,  // (1,), unused if LEGACY
-                   float* __restrict__ y,            // (M, N)
-                   int M, int P, int R, int N, int S,
-                   int nbits, int adc_bits, int cell_bits, float gain) {
-  __shared__ float xs[BM][kRowChunk];
-  const int n = blockIdx.x * kCols + threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int mrows = min(BM, M - m0);
-  const bool col_ok = n < N;
-  const int nb = NB == 1 ? 1 : nbits;
-  const float top = (float)((1 << adc_bits) - 1);
-
-  float tot[BM];
-#pragma unroll
-  for (int mm = 0; mm < BM; ++mm) tot[mm] = 0.f;
-
-  for (int p = 0; p < P; ++p) {
-    float acc[BM];
-#pragma unroll
-    for (int mm = 0; mm < BM; ++mm) acc[mm] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float lo = lo_s[s];
-      const float lsb = repro::adc_lsb(lo, hi_s[s], adc_bits);
-      const size_t base = ((size_t)s * P + p) * (size_t)R * N + n;
-      float v[NB][BM];
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int mm = 0; mm < BM; ++mm) v[b][mm] = 0.f;
-
-      for (int r0 = 0; r0 < R; r0 += kRowChunk) {
-        const int rc = min(kRowChunk, R - r0);
-        __syncthreads();
-        for (int i = threadIdx.x; i < BM * kRowChunk; i += kCols) {
-          const int mm = i / kRowChunk, rr = i % kRowChunk;
-          xs[mm][rr] = (mm < mrows && rr < rc)
-              ? x[((size_t)(m0 + mm) * P + p) * R + r0 + rr] : 0.f;
-        }
-        __syncthreads();
-        if (!col_ok) continue;
-        const float* gpr = gp + base + (size_t)r0 * N;
-        const float* gmr = gm + base + (size_t)r0 * N;
-        for (int r = 0; r < rc; r += kBatch) {
-          // issue the batch's loads before any use, so kBatch rows of
-          // both lines are in flight at once
-          float a[kBatch], c[kBatch];
-#pragma unroll
-          for (int j = 0; j < kBatch; ++j) {
-            const bool in = r + j < rc;
-            a[j] = in ? __ldg(gpr + (size_t)(r + j) * N) : 0.f;
-            c[j] = in ? __ldg(gmr + (size_t)(r + j) * N) : 0.f;
-          }
-#pragma unroll
-          for (int j = 0; j < kBatch; ++j) {
-            if (r + j >= rc) break;
-            // g = g_pos - g_neg per element, before the product
-            const float g = __fsub_rn(a[j], c[j]);
-#pragma unroll
-            for (int mm = 0; mm < BM; ++mm) {
-              if (mm >= mrows) continue;
-              const float xv = xs[mm][r + j];
-              if (NB == 1) {
-                v[0][mm] = __fadd_rn(v[0][mm], __fmul_rn(xv, g));
-              } else {
-                const int xi = (int)xv;
-                const int mag = abs(xi);
-                const float sg = (float)((xi > 0) - (xi < 0));
-#pragma unroll
-                for (int b = 0; b < NB; ++b) {
-                  if (b < nb && ((mag >> b) & 1))
-                    v[b][mm] = __fadd_rn(v[b][mm], __fmul_rn(sg, g));
-                }
-              }
-            }
-          }
-        }
-      }
-      if (!col_ok) continue;
-      if (LEGACY) {
-        // value-unit ADC of each term, the 2**b shift-add (bits ascending,
-        // from zero), times gain: code units, summed over partitions
-#pragma unroll
-        for (int mm = 0; mm < BM; ++mm) {
-          float a = 0.f;
-#pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            if (b < nb) {
-              const float q = repro::adc_value_units(v[b][mm], lo, hi_s[s], top);
-              a = __fadd_rn(a, __fmul_rn(q, ldexpf(1.f, NB == 1 ? 0 : b)));
-            }
-          }
-          acc[mm] = __fmul_rn(a, gain);
-        }
-        continue;
-      }
-      const float w_s = ldexpf(1.f, cell_bits * s);   // slice weight 2**(cb*s)
-#pragma unroll
-      for (int mm = 0; mm < BM; ++mm) {
-        float a_s = 0.f;                               // slice accum, code units
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          if (b < nb) {
-            const float q = repro::adc_code_units(v[b][mm], lo, lsb, top);
-            a_s = __fadd_rn(a_s, __fmul_rn(q, ldexpf(1.f, NB == 1 ? 0 : b)));
-          }
-        }
-        acc[mm] = (S == 1) ? a_s
-                           : __fadd_rn(acc[mm], __fmul_rn(__fmul_rn(a_s, lsb), w_s));
-      }
-    }
-#pragma unroll
-    for (int mm = 0; mm < BM; ++mm) tot[mm] = __fadd_rn(tot[mm], acc[mm]);
-  }
-
-  if (!col_ok) return;
-  if (LEGACY) {
-#pragma unroll
-    for (int mm = 0; mm < BM; ++mm) {
-      if (mm < mrows) y[(size_t)(m0 + mm) * N + n] = tot[mm];
-    }
-    return;
-  }
-  float out_scale = scale[0];
-  if (S == 1)
-    out_scale = __fmul_rn(out_scale,
-                          repro::adc_lsb(lo_s[0], hi_s[0], adc_bits));
-#pragma unroll
-  for (int mm = 0; mm < BM; ++mm) {
-    if (mm < mrows) y[(size_t)(m0 + mm) * N + n] = __fmul_rn(tot[mm], out_scale);
-  }
-}
-
-template <int BM, int NB, bool LEGACY = false>
-void launch_rowwise(const float* x, const float* gp, const float* gm,
-                    const float* lo, const float* hi, const float* scale,
-                    float* y, int M, int P, int R, int N, int S, int nbits,
-                    int adc_bits, int cell_bits, cudaStream_t stream,
-                    float gain = 0.f) {
-  dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM);
-  rowwise_mvm_kernel<BM, NB, LEGACY><<<grid, kCols, 0, stream>>>(
-      x, gp, gm, lo, hi, scale, y, M, P, R, N, S, nbits, adc_bits, cell_bits,
-      gain);
-}
-
 }  // namespace
 
 // nbits == 0 selects analog input accumulation (one ADC term per slice);
@@ -629,16 +470,20 @@ extern "C" int repro_analog_mvm_diff(const float* x, const float* gp,
 }
 
 // Design D: x (M, P, R) integers of at most nbits (1..8) magnitude bits,
-// g_pos/g_neg (P, R, N), scalar lo/hi; returns code units.  Returns
-// cudaGetLastError() after the launch.
+// g_pos/g_neg (P, R, N), scalar lo/hi; returns code units.  Returns the
+// launch's CUDA error, 0 on success.
 extern "C" int repro_analog_mvm_bitserial(const float* x, const float* gp,
                                           const float* gm, const float* lo,
                                           const float* hi, float* y, int M,
                                           int P, int R, int N, int nbits,
                                           int adc_bits, float gain,
                                           void* stream) {
-  launch_rowwise<2, 8, true>(x, gp, gm, lo, hi, nullptr, y, M, P, R, N, 1,
-                             nbits, adc_bits, 0,
-                             static_cast<cudaStream_t>(stream), gain);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 4)
+    return launch_stream<4, 1, 1, 8, true>(x, gp, gm, lo, hi, nullptr, y, M,
+                                           P, R, N, 1, nbits, adc_bits, 0,
+                                           gain, st);
+  return launch_stream<16, 4, 1, 8, true>(x, gp, gm, lo, hi, nullptr, y, M,
+                                          P, R, N, 1, nbits, adc_bits, 0,
+                                          gain, st);
 }

@@ -12,21 +12,25 @@ one-code ADC flips only where the pre-ADC value lies within 4 ulp of a
 rounding edge; bit-line currents within 2 ulp of ``|I|``; flash decode and
 paged attention within ``4 ulp + kv_len * eps * max|v|``, and the paged
 kernel equal to the flash-decode kernel on the gathered view to the bit.
-The fused MVM kernel (both input modes) and the legacy Design-A kernel
-are also held to their plain versions to the bit (``torch.equal``), on
-the grids and on the edges of their tiling: row counts M in {1, 4, 40,
-128} (row tiles of 4, 16 and 128), partitions P in {1, 3, 6, 9} (9 runs
-two rounds of an 8-block cluster), N in {7, 130, 2560} (N % 4 != 0 takes
-the 4-byte copies) and array rows in {33, 854, 1152} (ragged stages).
+The fused MVM kernel (both input modes), the legacy Design-A kernel and
+the Design-D bit-serial kernel are also held to their plain versions to
+the bit (``torch.equal``), on the grids and on the edges of their tiling:
+row counts M in {1, 4, 40, 128} (row tiles of 4, 16 and 128), partitions
+P in {1, 3, 6, 9} (9 runs two rounds of an 8-block cluster), N in {7,
+130, 2560} (N % 4 != 0 takes the 4-byte copies) and array rows in {33,
+854, 1152} (ragged stages).  The bit-line kernel is held to the bit too,
+on its grid and on the edges of its tiling (``BITLINE_EDGE_GRID``).
 The grids (``tolerance.*_GRID``) are those of ``tests/test_kernels.py``,
 shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_parasitics.py``, ``tests/test_torch_paged.py`` and
 ``chip_smoke.py``.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.adc import range_from_samples
 from repro_torch.kernels import fused as t_fused
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import tolerance
@@ -41,6 +45,7 @@ from repro_torch.kernels.tolerance import (BITLINE_GRID, BITSERIAL_GAIN,
                                            flash_case, fused_case,
                                            fused_parasitic_case, legacy_case,
                                            paged_case)
+from repro_torch.kernels.ref import fused_pre_adc
 
 
 def _ids(grid):
@@ -125,6 +130,44 @@ def test_bitline_kernel_matches_plain(cuda_device, m, k, n, r):
     assert t_fused.LAUNCHES["bitline_mvm"] == before + 1
     res = tolerance.bitline_check(got, want)
     assert res["ok"], res
+    assert torch.equal(got, want)
+
+
+#: (X, G, M, K, N, r_hat) cases on the edges of the bit-line kernel's
+#: tiling: K of 1 to 1152 around its 8-row batches and 128-row x stages,
+#: plane rows M that are not a multiple of a thread's 4 or a block's 32,
+#: N % 32 != 0, plane batches X < G broadcast over the arrays, and three
+#: parasitic levels
+BITLINE_EDGE_GRID = [(1, 1, 1, 1, 33, 1e-3), (1, 1, 7, 15, 45, 1e-4),
+                     (1, 1, 9, 16, 7, 1e-5), (1, 2, 33, 17, 32, 1e-3),
+                     (2, 4, 7, 255, 70, 1e-4), (1, 3, 9, 256, 33, 1e-5),
+                     (3, 3, 40, 257, 100, 1e-4), (3, 6, 896, 854, 70, 1e-4),
+                     (1, 2, 31, 1152, 65, 1e-3), (2, 2, 1, 1152, 257, 1e-5),
+                     (3, 3, 896, 128, 2560, 1e-4), (2, 4, 9, 854, 31, 1e-5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ng,m,k,n,r", BITLINE_EDGE_GRID,
+                         ids=_ids(BITLINE_EDGE_GRID))
+def test_bitline_kernel_equals_plain_on_tile_edges(cuda_device, nx, ng, m, k,
+                                                   n, r):
+    """Every (array, plane row, column) sweep equals the plain version to
+    the bit on the edges of the kernel's tiling; signed planes with about
+    40% zeros (signed zeros among them), conductances in [0, 1)."""
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = (np.sign(rng.standard_normal((nx, m, k)))
+         * (rng.random((nx, m, k)) > 0.4)).astype(np.float32)
+    g = rng.random((ng, k, n)).astype(np.float32)
+    x, g = _on(cuda_device, x, g)
+    before = t_fused.LAUNCHES["bitline_mvm"]
+    got = t_ops.bitline_mvm(g, x, r)
+    want = t_ops.bitline_mvm(g, x, r, backend="oracle")
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["bitline_mvm"] == before + 1
+    assert got.shape == (ng, m, n) and bool(torch.isfinite(got).all())
+    res = tolerance.bitline_check(got, want)
+    assert res["ok"], res
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -138,9 +181,10 @@ def test_bitline_kernel_covers_every_array_in_one_launch(cuda_device):
     before = t_fused.LAUNCHES["bitline_mvm"]
     got = t_ops.bitline_mvm(g, x, 3e-4)
     assert t_fused.LAUNCHES["bitline_mvm"] == before + 1
-    res = tolerance.bitline_check(got, t_ops.bitline_mvm(g, x, 3e-4,
-                                                         backend="oracle"))
+    want = t_ops.bitline_mvm(g, x, 3e-4, backend="oracle")
+    res = tolerance.bitline_check(got, want)
     assert res["ok"], res
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -213,19 +257,29 @@ MVM_EDGE_GRID = [(1, 1, 1, 33, 7), (1, 6, 1, 854, 2560), (1, 9, 1, 33, 130),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["analog", "bitserial", "legacy"])
+@pytest.mark.parametrize("mode", ["analog", "bitserial", "legacy",
+                                  "bitserial_legacy"])
 @pytest.mark.parametrize("m,p,s,rows,n", MVM_EDGE_GRID,
                          ids=_ids(MVM_EDGE_GRID))
 def test_mvm_kernels_equal_plain_on_tile_edges(cuda_device, m, p, s, rows, n,
                                                mode):
-    """The fused kernel in both input modes and the legacy Design-A kernel
-    equal their plain versions to the bit on the edges of their tiling."""
+    """The fused kernel in both input modes, the legacy Design-A kernel
+    and the Design-D bit-serial kernel (slice 0, 7 bits, the ADC range of
+    its per-bit pre-ADC values) equal their plain versions to the bit on
+    the edges of their tiling."""
     x, gp, gm, lo, hi = _on(cuda_device, *fused_case(m, p, s, rows, n,
                                                      seed=m + p + rows))
     if mode == "legacy":
         x = x.clamp(-127, 127)
         kw = dict(adc_lo=lo[0], adc_hi=hi[0], adc_bits=8, gain=LEGACY_GAIN)
         name, f, gp, gm = "analog_mvm_diff", t_ops.analog_mvm, gp[0], gm[0]
+    elif mode == "bitserial_legacy":
+        x = x.clamp(-127, 127)
+        lo, hi = range_from_samples(fused_pre_adc(x, gp[:1], gm[:1], 7))
+        kw = dict(n_bits=7, adc_lo=lo, adc_hi=hi, adc_bits=8,
+                  gain=BITSERIAL_GAIN)
+        name, f = "analog_mvm_bitserial", t_ops.analog_mvm_bitserial
+        gp, gm = gp[0], gm[0]
     else:
         kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=2,
                   n_bits=7 if mode == "bitserial" else None,
@@ -284,7 +338,8 @@ def test_legacy_kernel_is_batch_invariant_at_prefill_bucket(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["fused_mvm_parasitic",
-                                   "analog_mvm_parasitic", "analog_mvm"])
+                                   "analog_mvm_parasitic", "analog_mvm",
+                                   "analog_mvm_bitserial"])
 def test_new_mvm_kernels_are_batch_invariant(cuda_device, which):
     """Each output row is the same bits whichever rows share the launch
     (M = 40 runs in one 128-row tile of the legacy kernel, a single row in
@@ -300,6 +355,8 @@ def test_new_mvm_kernels_are_batch_invariant(cuda_device, which):
         kw = dict(adc_lo=lo[0], adc_hi=hi[0], adc_bits=8, gain=LEGACY_GAIN)
         if which == "analog_mvm_parasitic":
             kw.update(r_hat=1e-4, n_bits=7)
+        if which == "analog_mvm_bitserial":
+            kw.update(n_bits=7, gain=BITSERIAL_GAIN)
     f = getattr(t_ops, which)
     full = f(x, gp, gm, **kw)
     for i in (0, 15, 16, 39):
@@ -380,9 +437,15 @@ def test_paged_attention_kernel_ignores_table_tail(cuda_device):
     assert torch.equal(base, t_ops.paged_attention(q, k2, v2, tab, kv_len))
 
 
+#: Design-D cases beyond the shared grid: nine partitions (two rounds of
+#: the 8-block cluster) at M = 1, 4 and 40 (row tiles 4 and 16), N % 4 != 0
+_BITSERIAL_P9 = [c + (nb,) for c in ((1, 9, 33, 130), (4, 9, 854, 7),
+                                     (40, 9, 96, 70)) for nb in (4, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,p,rows,n,n_bits", BITSERIAL_GRID,
-                         ids=_ids(BITSERIAL_GRID))
+@pytest.mark.parametrize("m,p,rows,n,n_bits", BITSERIAL_GRID + _BITSERIAL_P9,
+                         ids=_ids(BITSERIAL_GRID + _BITSERIAL_P9))
 def test_bitserial_kernel_matches_plain(cuda_device, m, p, rows, n, n_bits):
     x, gp, gm = _on(cuda_device, *bitserial_case(m, p, rows, n, n_bits))
     lo, hi = (torch.tensor(v, device=cuda_device) for v in BITSERIAL_RANGE)
@@ -396,6 +459,7 @@ def test_bitserial_kernel_matches_plain(cuda_device, m, p, rows, n, n_bits):
     res = tolerance.bitserial_check(y, y_ref, x, gp, gm, lo, hi,
                                     BITSERIAL_GAIN, adc_bits=8, n_bits=n_bits)
     assert res["ok"], res
+    assert torch.equal(y, y_ref)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the fused (B1) and legacy Design-A (B7) analog MVM kernels of one
-checkout at qwen1.5-4b's four full-width sites, on the device alone.
+"""Time the fused (B1), legacy Design-A (B7) and Design-D bit-serial (B8)
+analog MVM kernels of one checkout at qwen1.5-4b's four full-width sites,
+on the device alone.
 
     python3 tools/mvm_bench.py [--tree DIR] [--label NAME] [--out FILE]
 
@@ -10,15 +11,17 @@ card: unpack the other into a git-ignored directory and run parent,
 change, change, parent.  Sites: wq (K 2560, N 2560), w_gate (K 2560,
 N 6912), w_down (K 6912, N 2560) and the head (K 2560, N 151936), Design A
 under 5% state-proportional error, weights and activations from fixed
-seeds, at M = 4 (decode) and M = 128 (the prefill bucket).  Each call is
+seeds, at M = 4 (decode) and M = 128 (the prefill bucket); B8 at M = 4
+with 7 input bits and the ADC range of its per-bit pre-ADC values, as
+``chip_smoke.bitserial_full_width`` drives it.  Each call is
 timed as a CUDA graph of ten launches replayed five times between CUDA
 events (``chip_smoke.graph_time``), beside the wrapper's time per call
 (CUDA events around ten calls, host work included), and held against its
 plain version (``torch.equal``).  Prints one line per site and row count,
 then the per-decode-step sums at 4 layers (wq's shape 16 calls, w_gate's
-8, w_down's 4, the head 1) with the card's name and power limit; with
-``--out`` the results are also appended to FILE as one JSON line.
-Needs a CUDA card and nvcc.
+8, w_down's 4, the head 1) and B8's sum of one call per site, with the
+card's name and power limit; with ``--out`` the results are also
+appended to FILE as one JSON line.  Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -52,7 +55,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import analog as A
     from repro_torch.core import errors as E
+    from repro_torch.core.adc import range_from_samples
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import fused_pre_adc
 
     build.build_all(["fused_mvm"])
     card = cs.card_line()
@@ -76,6 +81,13 @@ def main() -> int:
                                                      **fkw),
                 "analog_mvm_diff": lambda b: ops.analog_mvm(
                     x, gp[0], gm[0], backend=b, **lkw)}
+            if x.shape[0] == 4:
+                blo, bhi = range_from_samples(fused_pre_adc(x, gp, gm, 7))
+                bkw = dict(n_bits=7, adc_lo=blo.reshape(1),
+                           adc_hi=bhi.reshape(1), adc_bits=8, gain=gain)
+                calls["analog_mvm_bitserial"] = \
+                    lambda b: ops.analog_mvm_bitserial(x, gp[0], gm[0],
+                                                       backend=b, **bkw)
             for kernel, call in calls.items():
                 equal = bool(torch.equal(call("kernel"), call("oracle")))
                 ms = cs.graph_time(lambda: call("kernel"))
@@ -92,6 +104,8 @@ def main() -> int:
     step = {kn: sum(r["device_ms"] * PER_STEP[r["site"]] for r in rows
                     if r["kernel"] == kn and r["m"] == 4)
             for kn in ("fused_mvm", "analog_mvm_diff")}
+    step["analog_mvm_bitserial (four sites)"] = sum(
+        r["device_ms"] for r in rows if r["kernel"] == "analog_mvm_bitserial")
     print(f"{args.label} per decode step (M=4, 4 layers), device: "
           + "  ".join(f"{k} {v:.4f} ms" for k, v in step.items())
           + f"  on {card}", flush=True)
