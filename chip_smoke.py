@@ -17,13 +17,14 @@ lines:
    version's, the least time the card could take (bound) and one PyTorch
    library call computing the same function or its dot part (yardstick
    only; no PyTorch call solves a bit line, so the parasitic kernels have
-   none); each fused site is also checked and timed at a full prefill
-   bucket (4 slots x the cache length); the fused and legacy Design-A
-   kernels must equal their plain versions to the bit at both row counts,
-   and are timed on the device alone (a CUDA graph of ten launches, as are
-   their torch.matmul yardsticks) beside the wrapper's time per call; the
-   bit-line kernel, which runs only in calibration, is held in phase 5 at
-   the shapes that gives it;
+   none); each fused and parasitic site is also checked and timed at a
+   full prefill bucket (4 slots x the cache length); the fused, legacy
+   Design-A, fused parasitic and legacy parasitic kernels must equal their
+   plain versions to the bit at both row counts; the fused and legacy
+   Design-A kernels are timed on the device alone (a CUDA graph of ten
+   launches, as are their torch.matmul yardsticks) beside the wrapper's
+   time per call; the bit-line kernel, which runs only in calibration, is
+   held in phase 5 at the shapes that gives it;
 3. main path — qwen1.5-4b at its published width (weights from a seed,
    depth cut to ``--layers``, default 4 of 40) programmed with Design A
    under 5% state-proportional error and ``fused="kernel"``, calibrated,
@@ -42,11 +43,11 @@ lines:
    conductances, at ``r_hat`` 1e-4 (the bit-line kernel in calibration,
    the legacy parasitic kernel in serving) and at ``r_hat`` 0 (the legacy
    Design-A kernel), each recalibrated and serving three requests that
-   must equal ``decode_lm``; one prefill's logits must agree with the same
-   pack on the legacy kernels' plain versions, and the bit-line kernel is
-   held against its plain version (to the bit), and timed, on one call of
-   each shape the calibration gave it (its times summed over one
-   calibration);
+   must equal ``decode_lm``; one prefill's logits must equal the same
+   pack's on the legacy kernels' plain versions, the decode step is timed
+   at 4 rows, and the bit-line kernel is held against its plain version
+   (to the bit), and timed, on one call of each shape the calibration
+   gave it (its times summed over one calibration);
 6. path PG — paged serving with prefix sharing: the main path's programmed
    and calibrated pack served through ``PagedServeRuntime(page_size=8,
    max_slots=4, max_len=32)``, the main path's five requests and three
@@ -402,6 +403,9 @@ def check_parasitic_grids(torch, ops, tol) -> dict:
         hold("fused_mvm_parasitic", case, tol.fused_mvm_parasitic_check(
             y, y_ref, x, gp, gm, r_hat, lo, hi, kw["scale"], adc_bits=8,
             cell_bits=kw["cell_bits"], n_bits=7))
+        if not torch.equal(y, y_ref):
+            raise AssertionError(f"fused_mvm_parasitic grid case {case} is "
+                                 f"not its plain version to the bit")
     for case in tol.BITLINE_GRID:
         m, k, n, r_hat = case
         x, g = on(*tol.bitline_case(m, k, n))
@@ -416,11 +420,14 @@ def check_parasitic_grids(torch, ops, tol) -> dict:
         x, gp, gm = on(*tol.legacy_case(*case))
         kw = dict(r_hat=1e-3, n_bits=7, adc_lo=lo, adc_hi=hi, adc_bits=8,
                   gain=tol.LEGACY_GAIN)
+        y = ops.analog_mvm_parasitic(x, gp, gm, **kw)
+        y_ref = ops.analog_mvm_parasitic(x, gp, gm, backend="oracle", **kw)
         hold("analog_bitline_diff", case, tol.analog_mvm_check(
-            ops.analog_mvm_parasitic(x, gp, gm, **kw),
-            ops.analog_mvm_parasitic(x, gp, gm, backend="oracle", **kw),
-            x, gp, gm, lo, hi, tol.LEGACY_GAIN, adc_bits=8, r_hat=1e-3,
-            n_bits=7))
+            y, y_ref, x, gp, gm, lo, hi, tol.LEGACY_GAIN, adc_bits=8,
+            r_hat=1e-3, n_bits=7))
+        if not torch.equal(y, y_ref):
+            raise AssertionError(f"analog_bitline_diff grid case {case} is "
+                                 f"not its plain version to the bit")
     for case in tol.LEGACY_GRID:
         m, p, rows, n, adc_bits = case
         x, gp, gm = on(*tol.legacy_case(m, p, rows, n, seed=m * 7 + p))
@@ -441,6 +448,55 @@ def sweep_ops(systems: int, rows: int):
     return systems * (rows * (6 + 2 * DIV_FLOPS) + DIV_FLOPS)
 
 
+def parasitic_calls(ops, tol, x, gp, gm, lo, hi, scale, gain, nb: int,
+                    r_hat=R_HAT):
+    """The fused parasitic and legacy parasitic Design-A kernels on one
+    site's operands (Design A at ``r_hat``, ``nb`` input bits), each as
+    (call, check, bytes, operations): ``call(backend)`` runs it,
+    ``check(y, y_plain)`` holds it to the bound, and the bytes and fp32
+    operations are its bound's work."""
+    m, p, rows = x.shape
+    n = gp.shape[-1]
+    n_bytes = 4 * (x.numel() + gp.numel() + gm.numel() + m * n)
+    n_flops = sweep_ops(2 * nb * m * p * n, rows) + 3 * nb * m * p * n
+    return {
+        "fused_mvm_parasitic": (
+            lambda b: ops.fused_mvm_parasitic(
+                x, gp, gm, r_hat=r_hat, adc_lo=lo, adc_hi=hi, adc_bits=8,
+                cell_bits=7, n_bits=nb, scale=scale, backend=b),
+            lambda y, yr: tol.fused_mvm_parasitic_check(
+                y, yr, x, gp, gm, r_hat, lo, hi, scale, adc_bits=8,
+                cell_bits=7, n_bits=nb),
+            n_bytes, n_flops),
+        "analog_bitline_diff": (
+            lambda b: ops.analog_mvm_parasitic(
+                x, gp, gm, r_hat=r_hat, n_bits=nb, adc_lo=lo, adc_hi=hi,
+                adc_bits=8, gain=gain, backend=b),
+            lambda y, yr: tol.analog_mvm_check(
+                y, yr, x, gp[0], gm[0], lo, hi, gain, adc_bits=8,
+                r_hat=r_hat, n_bits=nb),
+            n_bytes, n_flops),
+    }
+
+
+def hold_equal(torch, label: str, call, check):
+    """Run ``call`` (a kernel's wrapper, by backend) on the card and as its
+    plain version, and raise unless the card's output is finite, within
+    ``check``'s bound and equal to the plain one to the bit.  Returns the
+    check's result and the output's shape."""
+    y = call("kernel")
+    y_ref = call("oracle")
+    torch.cuda.synchronize()
+    r = check(y, y_ref)
+    shape = tuple(y.shape)
+    if not r["ok"] or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{label} {shape} outside the bound: {r}")
+    if not torch.equal(y, y_ref):
+        raise AssertionError(f"{label} {shape} is not its plain version to "
+                             f"the bit")
+    return r, shape
+
+
 def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
                          prefill_m: int) -> dict:
     """The three serving kernels of paths P1 and P2 at the sites of one
@@ -448,12 +504,14 @@ def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
     plain version, with its time, the plain version's, its bound and, for
     the legacy Design-A kernel, the dot as one torch.matmul.  Times are
     summed over a step's sites (wq's shape 4 per layer, w_gate's 2,
-    w_down's 1, the head once).  The legacy Design-A kernel must equal its
-    plain version to the bit, here and at a full prefill bucket (M =
-    ``prefill_m``), and is timed on the device alone (a CUDA graph of ten
-    launches, as is its torch.matmul) beside the wrapper's time per call.
-    The bit-line kernel runs only in path P2's calibration and is held
-    there, at the shapes that gives it (:func:`bitline_at_calibration`)."""
+    w_down's 1, the head once).  Each kernel must equal its plain version
+    to the bit, here and at a full prefill bucket (M = ``prefill_m``).
+    The legacy Design-A kernel is timed on the device alone (a CUDA graph
+    of ten launches, as is its torch.matmul) beside the wrapper's time per
+    call, the parasitic kernels (milliseconds a call) by events around
+    calls.  The bit-line kernel runs only in path P2's calibration and is
+    held there, at the shapes that gives it
+    (:func:`bitline_at_calibration`)."""
     from repro_torch.core.adc import range_from_samples
     from repro_torch.kernels.ref import fused_pre_adc, parasitic_pre_adc
 
@@ -479,51 +537,21 @@ def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
         p, rows = x.shape[1], x.shape[2]
         lo_par, hi_par = (t.reshape(1) for t in range_from_samples(
             parasitic_pre_adc(x, gp, gm, R_HAT, nb)))
-        x_bytes = 4 * x.numel()
-        g_bytes = 4 * (gp.numel() + gm.numel())
-        calls = {
-            "fused_mvm_parasitic": (
-                lambda b: ops.fused_mvm_parasitic(
-                    x, gp, gm, r_hat=R_HAT, adc_lo=lo_par, adc_hi=hi_par,
-                    adc_bits=8, cell_bits=7, n_bits=nb, scale=scale,
-                    backend=b),
-                lambda y, yr: tol.fused_mvm_parasitic_check(
-                    y, yr, x, gp, gm, R_HAT, lo_par, hi_par, scale,
-                    adc_bits=8, cell_bits=7, n_bits=nb),
-                x_bytes + g_bytes + 4 * m * n,
-                sweep_ops(2 * nb * m * p * n, rows) + 3 * nb * m * p * n),
-            "analog_bitline_diff": (
-                lambda b: ops.analog_mvm_parasitic(
-                    x, gp, gm, r_hat=R_HAT, n_bits=nb, adc_lo=lo_par,
-                    adc_hi=hi_par, adc_bits=8, gain=gain, backend=b),
-                lambda y, yr: tol.analog_mvm_check(
-                    y, yr, x, gp[0], gm[0], lo_par, hi_par, gain,
-                    adc_bits=8, r_hat=R_HAT, n_bits=nb),
-                x_bytes + g_bytes + 4 * m * n,
-                sweep_ops(2 * nb * m * p * n, rows) + 3 * nb * m * p * n),
-            "analog_mvm_diff": (
-                lambda b: ops.analog_mvm(
-                    x, gp, gm, adc_lo=lo_lin, adc_hi=hi_lin, adc_bits=8,
-                    gain=gain, backend=b),
-                lambda y, yr: tol.analog_mvm_check(
-                    y, yr, x, gp[0], gm[0], lo_lin, hi_lin, gain,
-                    adc_bits=8),
-                x_bytes + g_bytes + 4 * m * n,
-                2 * m * p * rows * n + p * rows * n),
-        }
+        calls = parasitic_calls(ops, tol, x, gp, gm, lo_par, hi_par, scale,
+                                gain, nb)
+        calls["analog_mvm_diff"] = (
+            lambda b: ops.analog_mvm(
+                x, gp, gm, adc_lo=lo_lin, adc_hi=hi_lin, adc_bits=8,
+                gain=gain, backend=b),
+            lambda y, yr: tol.analog_mvm_check(
+                y, yr, x, gp[0], gm[0], lo_lin, hi_lin, gain, adc_bits=8),
+            4 * (x.numel() + gp.numel() + gm.numel() + m * n),
+            2 * m * p * rows * n + p * rows * n)
         lines = []
         for nm, (call, check, n_bytes, n_flops) in calls.items():
-            y = call("kernel")
-            y_ref = call("oracle")
-            torch.cuda.synchronize()
-            r = check(y, y_ref)
-            if not r["ok"] or not bool(torch.isfinite(y).all()):
-                raise AssertionError(f"{nm} at {site} outside the bound: {r}")
+            r, _ = hold_equal(torch, f"{nm} at {site}", call, check)
             legacy = nm == "analog_mvm_diff"
             if legacy:
-                if not torch.equal(y, y_ref):
-                    raise AssertionError(f"{nm} at {site} M={m} is not its "
-                                         f"plain version to the bit")
                 ms = graph_time(lambda: call("kernel"))
                 wrapper = cuda_time(lambda: call("kernel"), reps=10)
                 t_wrap = f" (device; wrapper {wrapper:.4f} ms)"
@@ -552,10 +580,12 @@ def parasitic_full_width(torch, A, E, ops, tol, cfg, n_layers: int,
                 del gd
             lines.append(f"{nm} kernel {ms:.4f} ms{t_wrap}  plain "
                          f"{plain:.1f} ms  bound {b_ms:.4f} ms ({b_by}){lib}  "
-                         f"max_abs_err {r['max_abs_err']:.3e}"
-                         + ("  equal to plain" if legacy else ""))
+                         f"max_abs_err {r['max_abs_err']:.3e}  equal to plain")
         lines.append(legacy_prefill(torch, ops, tol, gp[0], gm[0], inputs[1],
                                     gain))
+        lines += parasitic_prefill(torch, parasitic_calls(
+            ops, tol, inputs[1][0], gp, gm, lo_par, hi_par, inputs[1][3],
+            gain, nb))
         print(f"parasitic/legacy {site} (M={m} P={p} rows={rows} N={n} "
               f"x{per_step}/step): " + "; ".join(lines), flush=True)
         del gp, gm, inputs
@@ -576,18 +606,12 @@ def legacy_prefill(torch, ops, tol, gp, gm, inputs, gain) -> str:
     beside the wrapper's time per call."""
     x, lo, hi, _ = inputs
     kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, gain=gain)
-    y = ops.analog_mvm(x, gp, gm, **kw)
-    y_ref = ops.analog_mvm(x, gp, gm, backend="oracle", **kw)
-    torch.cuda.synchronize()
-    r = tol.analog_mvm_check(y, y_ref, x, gp, gm, lo, hi, gain, adc_bits=8)
+    r, _ = hold_equal(
+        torch, "analog_mvm_diff",
+        lambda b: ops.analog_mvm(x, gp, gm, backend=b, **kw),
+        lambda y, yr: tol.analog_mvm_check(y, yr, x, gp, gm, lo, hi, gain,
+                                           adc_bits=8))
     m, p, rows = x.shape
-    if not r["ok"] or not bool(torch.isfinite(y).all()):
-        raise AssertionError(f"analog_mvm_diff M={m} N={gp.shape[-1]} "
-                             f"outside the bound: {r}")
-    if not torch.equal(y, y_ref):
-        raise AssertionError(f"analog_mvm_diff M={m} N={gp.shape[-1]} is not "
-                             f"its plain version to the bit")
-    del y, y_ref
     ms = graph_time(lambda: ops.analog_mvm(x, gp, gm, **kw))
     wrapper = cuda_time(lambda: ops.analog_mvm(x, gp, gm, **kw), reps=10)
     n = gp.shape[-1]
@@ -596,6 +620,22 @@ def legacy_prefill(torch, ops, tol, gp, gm, inputs, gain) -> str:
     return (f"analog_mvm_diff prefill M={m}: kernel {ms:.4f} ms (device; "
             f"wrapper {wrapper:.4f} ms)  bound {b_ms:.4f} ms ({b_by})  "
             f"max_abs_err {r['max_abs_err']:.3e}  equal to plain")
+
+
+def parasitic_prefill(torch, calls) -> list:
+    """The fused parasitic and legacy parasitic Design-A kernels at a
+    prefill bucket (``calls`` from :func:`parasitic_calls`, on the decode
+    rows' ADC ranges): each equal to its plain version to the bit and
+    within the bound, with one call's time by events beside the bound."""
+    lines = []
+    for nm, (call, check, n_bytes, n_flops) in calls.items():
+        r, (m, _) = hold_equal(torch, nm, call, check)
+        ms = cuda_time(lambda: call("kernel"), reps=1, warmup=0)
+        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        lines.append(f"{nm} prefill M={m}: kernel {ms:.4f} ms  bound "
+                     f"{b_ms:.4f} ms ({b_by})  max_abs_err "
+                     f"{r['max_abs_err']:.3e}  equal to plain")
+    return lines
 
 
 def bitline_at_calibration(torch, ops, tol, seen: dict, r_hat) -> dict:
@@ -949,7 +989,8 @@ def logits_vs_plain(torch, cfg, params, pack, prompt,
     the ``kernels.ops`` module as ``legacy_ops``) the same pack with
     ``ops.analog_mvm`` and ``ops.analog_mvm_parasitic`` on their plain
     versions; raises past 1e-3 of the logit scale or on a non-finite
-    logit."""
+    logit, and on the legacy route at any difference, since its kernels
+    equal their plain versions to the bit."""
     from repro_torch.models.transformer import forward
 
     prompt = torch.as_tensor(prompt, device=DEVICE)[None]
@@ -971,6 +1012,9 @@ def logits_vs_plain(torch, cfg, params, pack, prompt,
           f"{bool(torch.isfinite(lg_k).all())})", flush=True)
     if not bool(torch.isfinite(lg_k).all()) or dev > 1e-3:
         raise AssertionError("served logits disagree with the plain version")
+    if legacy_ops is not None and dev != 0.0:
+        raise AssertionError("the legacy kernels' logits are not their plain "
+                             "versions' to the bit")
     return dev
 
 
@@ -1031,12 +1075,13 @@ def path_p1(torch, cfg, params, pack, reqs, calib, kern_fused):
 
 
 def path_p2(torch, ops, tol, cfg, params, pack, reqs, calib, kern_fused,
-            r_hat):
+            r_hat, step_reqs):
     """Path P2: the legacy ``use_pallas`` route on the main path's
     conductances at ``r_hat``, recalibrated and serving ``reqs``; then one
-    prefill's logits against the plain legacy versions and, under
-    parasitics, the bit-line kernel held at the shapes the calibration gave
-    it.  Returns (launch counts, the bit-line kernel's totals or None)."""
+    prefill's logits against the plain legacy versions, the decode step
+    timed at 4 rows (``step_reqs``' prompts) and, under parasitics, the
+    bit-line kernel held at the shapes the calibration gave it.  Returns
+    (launch counts, the bit-line kernel's totals or None)."""
     from repro_torch.serve import calibrate_lm
 
     bitline = ops.bitline_mvm
@@ -1074,6 +1119,10 @@ def path_p2(torch, ops, tol, cfg, params, pack, reqs, calib, kern_fused,
         raise AssertionError("a bit-line launch of the calibration was not "
                              "recorded")
     logits_vs_plain(torch, cfg, params, pack, reqs[1][0], legacy_ops=ops)
+    step = decode_step_s(torch, cfg, params, pack, step_reqs)
+    print(f"path P2 (use_pallas, r_hat {r_hat:g}): decode step (4 rows, "
+          f"{cfg.n_layers} layers, flash attention) {step * 1e3:.3f} ms, "
+          f"{4 / step:.1f} tokens/s", flush=True)
     bl = bitline_at_calibration(torch, ops, tol, seen, r_hat) if seen \
         else None
     return counts, bl
@@ -1362,9 +1411,9 @@ def main() -> int:
     short = [(p[:8], m) for p, m in reqs[:3]]
     t = time.perf_counter()
     p2_counts, bl = path_p2(torch, ops, tol, cfg, params, pack, short, calib,
-                            kern_fused, R_HAT)
+                            kern_fused, R_HAT, reqs)
     p2_ideal, _ = path_p2(torch, ops, tol, cfg, params, pack, short, calib,
-                          kern_fused, 0.0)
+                          kern_fused, 0.0, reqs)
     print(f"path P2 in {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     pg_counts, pg_stats, pg_step = path_pg(torch, cfg, params, pack, reqs,
@@ -1406,7 +1455,8 @@ def main() -> int:
              PARASITIC_REPLACES, p1_counts["fused_mvm_parasitic"]),
             ("bitline_mvm", "bitline.cu", BITLINE_REPLACES,
              p2_counts["bitline_mvm"]),
-            ("analog_bitline_diff", "bitline.cu", BL_DIFF_REPLACES,
+            ("analog_bitline_diff", "fused_mvm_parasitic.cu",
+             BL_DIFF_REPLACES,
              p2_counts["analog_bitline_diff"]),
             ("analog_mvm_diff", "fused_mvm.cu", MVM_DIFF_REPLACES,
              p2_ideal["analog_mvm_diff"])):

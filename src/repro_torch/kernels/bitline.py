@@ -1,12 +1,13 @@
-"""Launchers of the parasitic bit-line kernels in ``csrc/bitline.cu``
-(counterpart of ``repro.kernels.bitline``).
+"""Launchers of the parasitic bit-line kernels (counterpart of
+``repro.kernels.bitline``).
 
-* :func:`bitline_mvm_cuda`, replacing
+* :func:`bitline_mvm_cuda` — ``csrc/bitline.cu``, replacing
   ``repro.kernels.bitline.bitline_mvm_pallas``: signed input planes through
   the parasitic circuit of conductance arrays, the Thomas forward sweep
   down every column to the bottom-node current — every (array, plane row,
   column) system in one launch.
-* :func:`analog_bitline_diff_cuda`, replacing
+* :func:`analog_bitline_diff_cuda` — ``csrc/fused_mvm_parasitic.cu`` (the
+  fused parasitic kernel with the legacy epilogue), replacing
   ``repro.kernels.bitline.analog_bitline_diff_pallas``: the legacy unsliced
   Design A under parasitics (per partition both lines solved for every
   input bit, the analog bit fold, one value-unit ADC, ``* gain``, the sum
@@ -98,7 +99,8 @@ def analog_bitline_diff_cuda(
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return y
-    lib = _lib("bitline", ("repro_analog_bitline_diff",), _DIFF_ARGS)
+    lib = _lib("fused_mvm_parasitic", ("repro_analog_bitline_diff",),
+               _DIFF_ARGS)
     with torch.cuda.device(dev):
         rc = lib.repro_analog_bitline_diff(
             _ptr(x_parts), _ptr(g_pos), _ptr(g_neg), _ptr(r), _ptr(lo),

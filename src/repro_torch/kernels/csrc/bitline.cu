@@ -1,17 +1,15 @@
-// Parasitic bit-line kernels for Hopper (sm_90a).
+// Parasitic bit-line kernel for Hopper (sm_90a).
 //
-// Replaces two kernels of src/repro/kernels/bitline.py:
-// * bitline_mvm_pallas (_bitline_kernel): signed input planes through the
-//   parasitic circuit of conductance arrays, the Thomas forward sweep down
-//   each column to the bottom-node current.  The reference vmaps it over
-//   (slice, partition) (src/repro/core/analog.py:336-351); here one launch
-//   covers every (array, plane row, column): g is (G, K, N), x is
-//   (X, M, K) and array i reads plane batch i % X, so G = S * P arrays
-//   take the P partitions' planes, broadcast over slices.
-// * analog_bitline_diff_pallas (_parasitic_diff_kernel): the legacy
-//   unsliced Design A under parasitics: per partition, both lines solved
-//   for every input bit, the analog bit fold, one value-unit ADC per
-//   partition, * gain, and the sum over partitions in code units.
+// Replaces src/repro/kernels/bitline.py::bitline_mvm_pallas (kernel body
+// _bitline_kernel): signed input planes through the parasitic circuit of
+// conductance arrays, the Thomas forward sweep down each column to the
+// bottom-node current.  The reference vmaps it over (slice, partition)
+// (src/repro/core/analog.py:336-351); here one launch covers every (array,
+// plane row, column): g is (G, K, N), x is (X, M, K) and array i reads
+// plane batch i % X, so G = S * P arrays take the P partitions' planes,
+// broadcast over slices.  (The legacy parasitic Design-A kernel,
+// analog_bitline_diff_pallas, is fused_mvm_parasitic.cu's kernel with the
+// legacy epilogue.)
 //
 // What bounds bitline_mvm on the H100: instruction issue.  A row of a
 // sweep is three products, three adds and two IEEE divisions, each
@@ -29,13 +27,11 @@
 // * A thread sweeps kSys = 4 plane rows of one column together, row by
 //   row: each conductance it loads, its address and its g * r serve four
 //   systems.  A block is 32 columns x 8 threads x 4 plane rows.
-// * c = -1 / denom is -__frcp_rn(denom): round-to-nearest is symmetric,
-//   so the negated correctly rounded reciprocal is the correctly rounded
-//   quotient of -1.  Its expansion trades FCHK and three FFMAs for an
-//   FADD and an integer range check, and spares the register moves the
-//   division's slow-path call adds.  d's division stays __fdiv_rn, since
-//   multiplying by a reciprocal would change the bits.  A row step
-//   issues 26.5 instructions (tools/bitline_bench.py --sass).
+// * c = -1 / denom is -__frcp_rn(denom) (analog.cuh sweep_row).  Its
+//   expansion trades FCHK and three FFMAs for an FADD and an integer range
+//   check, and spares the register moves the division's slow-path call
+//   adds.  A row step issues 26.5 instructions (tools/bitline_bench.py
+//   --sass).
 // * ptxas does not move one system's division across another's
 //   slow-path branch, so each division's latency is hidden by other
 //   warps, not by the thread's other systems: kRowBatch = 8 conductance
@@ -47,17 +43,14 @@
 //   load.  The conductance rows of a batch are loaded before any is
 //   used; full batches run unrolled with no bounds test, the ragged tail
 //   of K row by row, the top row's base (1, not 2) as a loop-carried
-//   value.  Plane rows past M are zero-filled and columns past N never
-//   swept; neither is stored.
+//   value (analog.cuh sweep_stage, shared with fused_mvm_parasitic.cu).
+//   Plane rows past M are zero-filled and columns past N never swept;
+//   neither is stored.
 // * Each system still runs its rows in ascending order with every
 //   operation rounded as written, so the kernel equals its plain version
 //   in kernels/ref.py to the bit; only the interleaving of independent
 //   systems changed.
-//
-// analog_bitline_diff keeps one thread per system: the block layout and
-// bit fold of fused_mvm_parasitic.cu (analog.cuh bit_fold), one activation
-// row per block, partitions walked inside the block.  r_hat and gain are
-// runtime arguments, never compiled in.
+// * r_hat is a runtime argument, never compiled in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,23 +64,7 @@ namespace {
 constexpr int kSys = 4;          // plane rows one bitline_mvm thread sweeps
 constexpr int kThreadRows = 8;   // threads along plane rows per block
 constexpr int kTileM = kSys * kThreadRows;   // plane rows per block
-constexpr int kXRows = 128;      // array rows of x staged per pass
-constexpr int kRowBatch = 8;     // conductance rows loaded before a sweep
 constexpr int kMinBlocks = 4;    // resident blocks per SM (64 registers)
-
-// One row of the Thomas forward sweep, thomas_row's arithmetic with
-// c = -1 / denom taken as the negated correctly rounded reciprocal.
-__device__ __forceinline__ void sweep_row(float& c, float& d, float grr,
-                                          float xv, float base) {
-  const float denom =
-      __fadd_rn(__fadd_rn(__fmul_rn(fabsf(xv), grr), base), c);
-  c = -__frcp_rn(denom);
-  d = __fdiv_rn(__fadd_rn(__fmul_rn(xv, grr), d), denom);
-}
-
-__device__ __forceinline__ float lane(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
 
 __global__ void __launch_bounds__(kCols * kThreadRows, kMinBlocks)
 bitline_mvm_kernel(const float* __restrict__ x,    // (X, M, K) signed planes
@@ -120,36 +97,7 @@ bitline_mvm_kernel(const float* __restrict__ x,    // (X, M, K) signed planes
     }
     __syncthreads();
     if (!ok) continue;
-    const float* gr = gb + (size_t)r0 * N;
-    int i = 0;
-    for (; i + kRowBatch <= rc; i += kRowBatch) {
-      float gv[kRowBatch];
-#pragma unroll
-      for (int j = 0; j < kRowBatch; ++j)
-        gv[j] = __ldg(gr + (size_t)(i + j) * N);
-#pragma unroll
-      for (int j = 0; j < kRowBatch; j += 4) {
-        float4 xq[kSys];
-#pragma unroll
-        for (int t = 0; t < kSys; ++t)
-          xq[t] = *reinterpret_cast<const float4*>(&xs[ms + t][i + j]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float grr = __fmul_rn(gv[j + q], r);
-#pragma unroll
-          for (int t = 0; t < kSys; ++t)
-            sweep_row(c[t], d[t], grr, lane(xq[t], q), base);
-          base = 2.f;
-        }
-      }
-    }
-    for (; i < rc; ++i) {                  // the ragged tail of K
-      const float grr = __fmul_rn(__ldg(gr + (size_t)i * N), r);
-#pragma unroll
-      for (int t = 0; t < kSys; ++t)
-        sweep_row(c[t], d[t], grr, xs[ms + t][i], base);
-      base = 2.f;
-    }
+    sweep_stage(c, d, base, gb + (size_t)r0 * N, N, &xs[ms][0], rc, r);
   }
   if (!ok) return;
 #pragma unroll
@@ -157,36 +105,6 @@ bitline_mvm_kernel(const float* __restrict__ x,    // (X, M, K) signed planes
     const int m = m0 + ms + t;
     if (m < M) out[((size_t)gi * M + m) * N + n] = __fdiv_rn(d[t], r);
   }
-}
-
-__global__ void __launch_bounds__(kCols * 2 * kMaxBits)
-analog_bitline_diff_kernel(const float* __restrict__ x,     // (M, P, R)
-                           const float* __restrict__ gp,    // (P, R, N)
-                           const float* __restrict__ gm,    // (P, R, N)
-                           const float* __restrict__ r_p,   // (1,)
-                           const float* __restrict__ lo_p,  // (1,)
-                           const float* __restrict__ hi_p,  // (1,)
-                           float* __restrict__ y,           // (M, N)
-                           int M, int P, int R, int N, int nbits,
-                           int adc_bits, float gain) {
-  __shared__ float xs[kRowChunk];
-  __shared__ float cur[2 * kMaxBits][kCols];
-  const int n = blockIdx.x * kCols + threadIdx.x;
-  const int m = blockIdx.y;
-  const float r = r_p[0];
-  const float lo = lo_p[0], hi = hi_p[0];
-  const float top = (float)((1 << adc_bits) - 1);
-
-  float tot = 0.f;
-  for (int p = 0; p < P; ++p) {
-    const size_t off = (size_t)p * R * N;
-    const float accb = bit_fold(x + ((size_t)m * P + p) * R, gp + off,
-                                gm + off, R, N, n, r, nbits, xs, cur);
-    if (threadIdx.y == 0)
-      tot = __fadd_rn(tot, __fmul_rn(adc_value_units(accb, lo, hi, top),
-                                     gain));
-  }
-  if (threadIdx.y == 0 && n < N) y[(size_t)m * N + n] = tot;
 }
 
 }  // namespace
@@ -199,20 +117,5 @@ extern "C" int repro_bitline_mvm(const float* x, const float* g,
   bitline_mvm_kernel<<<grid, dim3(kCols, kThreadRows), 0,
                        static_cast<cudaStream_t>(stream)>>>(x, g, r, out, X,
                                                             M, K, N);
-  return (int)cudaGetLastError();
-}
-
-// 1 <= nbits <= 8 input bit planes.  Returns cudaGetLastError() after the
-// launch.
-extern "C" int repro_analog_bitline_diff(const float* x, const float* gp,
-                                         const float* gm, const float* r,
-                                         const float* lo, const float* hi,
-                                         float* y, int M, int P, int R, int N,
-                                         int nbits, int adc_bits, float gain,
-                                         void* stream) {
-  dim3 grid((N + kCols - 1) / kCols, M);
-  analog_bitline_diff_kernel<<<grid, dim3(kCols, 2 * nbits), 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, gp, gm, r, lo, hi, y, M, P, R, N, nbits, adc_bits, gain);
   return (int)cudaGetLastError();
 }

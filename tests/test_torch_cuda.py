@@ -19,7 +19,10 @@ row counts M in {1, 4, 40, 128} (row tiles of 4, 16 and 128), partitions
 P in {1, 3, 6, 9} (9 runs two rounds of an 8-block cluster), N in {7,
 130, 2560} (N % 4 != 0 takes the 4-byte copies) and array rows in {33,
 854, 1152} (ragged stages).  The bit-line kernel is held to the bit too,
-on its grid and on the edges of its tiling (``BITLINE_EDGE_GRID``).
+on its grid and on the edges of its tiling (``BITLINE_EDGE_GRID``), and
+so are the fused parasitic and legacy parasitic Design-A kernels, on
+their grids, on the edges of their tiling (``PARASITIC_EDGE_GRID``) and
+on a 128-row batch split into rows and straddling slices.
 The grids (``tolerance.*_GRID``) are those of ``tests/test_kernels.py``,
 shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_parasitics.py``, ``tests/test_torch_paged.py`` and
@@ -206,6 +209,7 @@ def test_fused_parasitic_kernel_matches_plain(cuda_device, m, p, s, rows, n,
         y, y_ref, x, gp, gm, r, lo, hi, kw["scale"], adc_bits=8,
         cell_bits=kw["cell_bits"], n_bits=7)
     assert res["ok"], res
+    assert torch.equal(y, y_ref)
 
 
 @pytest.mark.cuda
@@ -224,6 +228,77 @@ def test_legacy_parasitic_kernel_matches_plain(cuda_device, m, p, rows, n):
     res = tolerance.analog_mvm_check(y, y_ref, x, gp, gm, lo, hi, LEGACY_GAIN,
                                      adc_bits=8, r_hat=1e-3, n_bits=7)
     assert res["ok"], res
+    assert torch.equal(y, y_ref)
+
+
+#: (m, p, s, rows, n, n_bits, r_hat) cases on the edges of the parasitic
+#: fold kernel's tiling: row counts M in {1, 3, 4, 5, 9, 130} (single rows,
+#: ragged last row tiles, a prefill bucket), partitions P in {1, 3, 6, 9}
+#: (9 runs two rounds of an 8-block cluster), S in {1, 2, 4} slices (the
+#: fused kernel; the legacy one takes slice 0), n_bits in {1, 7, 8} (a
+#: thread's systems padded where rows x bits is odd), array rows in {1,
+#: 33, 854, 1152} around the 8-row batches and 128-row plane stages,
+#: N % 32 != 0, and three parasitic levels
+PARASITIC_EDGE_GRID = [(1, 1, 1, 1, 33, 1, 1e-3), (3, 3, 2, 33, 45, 1, 1e-4),
+                       (4, 3, 1, 854, 70, 7, 1e-4),
+                       (5, 6, 1, 1152, 31, 8, 1e-5),
+                       (9, 9, 4, 33, 100, 7, 1e-3),
+                       (130, 1, 1, 33, 65, 8, 1e-4),
+                       (4, 9, 2, 1152, 7, 1, 1e-5),
+                       (130, 3, 1, 854, 33, 7, 1e-4),
+                       (1, 6, 4, 854, 257, 7, 1e-3),
+                       (3, 1, 1, 1152, 130, 7, 1e-5),
+                       (9, 3, 2, 1, 45, 7, 1e-4)]
+
+
+def _parasitic_ranges(x, gp, gm, r_hat, n_bits):
+    """Per-slice ADC ranges (S,) of the plain pre-ADC values."""
+    from repro_torch.kernels.ref import parasitic_pre_adc
+
+    v = parasitic_pre_adc(x, gp, gm, r_hat, n_bits)           # (P, S, M, N)
+    lo, hi = zip(*(range_from_samples(v[:, s])
+                   for s in range(gp.shape[0])))
+    return torch.stack(lo), torch.stack(hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fused_mvm_parasitic",
+                                   "analog_mvm_parasitic"])
+@pytest.mark.parametrize("m,p,s,rows,n,n_bits,r", PARASITIC_EDGE_GRID,
+                         ids=_ids(PARASITIC_EDGE_GRID))
+def test_parasitic_kernels_equal_plain_on_tile_edges(cuda_device, m, p, s,
+                                                     rows, n, n_bits, r,
+                                                     which):
+    """The fused parasitic kernel and the legacy parasitic Design-A kernel
+    equal their plain versions to the bit on the edges of their tiling,
+    with ADC ranges from the plain pre-ADC values (8-bit signed
+    activations).  Where such a range is degenerate (lo == hi) the legacy
+    epilogue's plain version gives NaN, and the kernel must give the same
+    NaN; every other output is finite and equal."""
+    x, gp, gm, _, _ = _on(cuda_device, *fused_case(m, p, s, rows, n,
+                                                   seed=m + p + rows + n))
+    x = x.clamp(-127, 127)
+    if which == "fused_mvm_parasitic":
+        lo, hi = _parasitic_ranges(x, gp, gm, r, n_bits)
+        kw = dict(r_hat=r, adc_lo=lo, adc_hi=hi, adc_bits=8,
+                  cell_bits=2 if s > 1 else 7, n_bits=n_bits,
+                  scale=torch.tensor(3e-4, device=cuda_device))
+        name = "fused_mvm_parasitic"
+    else:
+        gp, gm = gp[0], gm[0]
+        lo, hi = _parasitic_ranges(x, gp[None], gm[None], r, n_bits)
+        kw = dict(r_hat=r, n_bits=n_bits, adc_lo=lo[0], adc_hi=hi[0],
+                  adc_bits=8, gain=LEGACY_GAIN)
+        name = "analog_bitline_diff"
+    f = getattr(t_ops, which)
+    before = t_fused.LAUNCHES[name]
+    y = f(x, gp, gm, **kw)
+    y_ref = f(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES[name] == before + 1
+    assert y.shape == (m, n)
+    assert bool(torch.isfinite(y[torch.isfinite(y_ref)]).all())
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
@@ -334,6 +409,53 @@ def test_legacy_kernel_is_batch_invariant_at_prefill_bucket(cuda_device):
                                                      seed=4))
     kw = dict(adc_lo=lo[0], adc_hi=hi[0], adc_bits=8, gain=LEGACY_GAIN)
     _rows_invariant(t_ops.analog_mvm, x.clamp(-127, 127), gp[0], gm[0], kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["analog_mvm_parasitic", "analog_mvm",
+                                   "analog_mvm_bitserial"])
+def test_legacy_epilogue_keeps_nan_of_degenerate_range(cuda_device, which):
+    """With lo == hi the legacy epilogue has no guard: a pre-ADC value
+    equal to lo is 0 / 0 in the reference and the plain version, NaN,
+    and the kernels keep it (a row of zero activations); every other
+    output equals the plain version's to the bit."""
+    x, gp, gm = _on(cuda_device, *legacy_case(5, 2, 33, 45, seed=2))
+    x[1] = 0.0
+    zero = torch.tensor(0.0, device=cuda_device)
+    kw = dict(adc_lo=zero, adc_hi=zero, adc_bits=8, gain=LEGACY_GAIN)
+    if which == "analog_mvm_parasitic":
+        kw.update(r_hat=1e-4, n_bits=7)
+    if which == "analog_mvm_bitserial":
+        kw.update(n_bits=7, gain=BITSERIAL_GAIN)
+    f = getattr(t_ops, which)
+    y = f(x, gp, gm, **kw)
+    y_ref = f(x, gp, gm, backend="oracle", **kw)
+    torch.cuda.synchronize()
+    assert bool(y_ref[1].isnan().all())
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fused_mvm_parasitic",
+                                   "analog_mvm_parasitic"])
+def test_parasitic_kernels_are_batch_invariant_at_prefill_bucket(cuda_device,
+                                                                 which):
+    """The fused parasitic kernel (two slices) and the legacy parasitic
+    Design-A kernel on a 128-row batch split into single rows and into
+    slices across their row tiles: every row the same bits, whatever M
+    and whichever tile it lands in (three partitions, so a three-block
+    cluster)."""
+    x, gp, gm, lo, hi = _on(cuda_device, *fused_case(128, 3, 2, 40, 45,
+                                                     seed=5))
+    x = x.clamp(-127, 127)
+    if which == "fused_mvm_parasitic":
+        kw = dict(r_hat=1e-4, adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=2,
+                  n_bits=7, scale=torch.tensor(3e-4, device=cuda_device))
+    else:
+        gp, gm = gp[0], gm[0]
+        kw = dict(r_hat=1e-4, n_bits=7, adc_lo=lo[0], adc_hi=hi[0],
+                  adc_bits=8, gain=LEGACY_GAIN)
+    _rows_invariant(getattr(t_ops, which), x, gp, gm, kw)
 
 
 @pytest.mark.cuda

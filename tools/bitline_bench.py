@@ -23,8 +23,8 @@ read just after the timing) and the sum over one calibration with the
 card's name and power limit.  With ``--sass`` it also disassembles the
 built kernel (``cuobjdump -sass``), counts the instructions one thread
 issues per row step in the sweep's main loop (the loop body without the
-divisions' slow-path calls, over the rows and systems one iteration
-sweeps, ``--rows`` x ``--systems``) and prints the issue ceiling that
+divisions' slow-path calls, over the row steps one iteration sweeps:
+half its reciprocals, as each row step issues two) and prints the issue ceiling that
 count implies: 128 lanes per clock per SM (4 warp instructions), 132 SMs,
 at the clock read.  With ``--out`` the results are also appended to FILE
 as one JSON line.  Needs a CUDA card and nvcc.
@@ -57,17 +57,19 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.split()[0])
 
 
-def sweep_loop_count(lib: Path, rows: int, systems: int) -> dict:
-    """Instructions per row step in ``bitline_mvm_kernel``'s main loop:
-    the body of the innermost loop (a backward branch with none inside it)
-    that holds the most reciprocals (``MUFU.RCP``), without the slow-path
-    blocks a forward branch skips (a ``CALL`` and no reciprocal), over
-    ``rows`` x ``systems`` row steps per iteration; with the count of each
-    opcode."""
+def sweep_loop_count(lib: Path, kernel: str = "bitline_mvm_kernel") -> dict:
+    """Instructions per row step in the main loop of ``kernel`` (the first
+    function of ``lib`` whose mangled name holds it): the body of the
+    innermost loop (a backward branch with none inside it) that holds the
+    most reciprocals (``MUFU.RCP``), without the slow-path blocks a forward
+    branch skips (a ``CALL`` and no reciprocal), over the row steps one
+    iteration sweeps: half its reciprocals, since each row step takes two
+    (``c = -1 / denom`` and the one inside ``d / denom``); with the count
+    of each opcode and the row steps."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    body = sass[sass.index("bitline_mvm_kernel"):]
+    body = sass[sass.index(kernel):]
     body = body[:body.find("Function :", 1) if "Function :" in body[1:]
                 else len(body)]
     ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
@@ -96,7 +98,8 @@ def sweep_loop_count(lib: Path, rows: int, systems: int) -> dict:
         i += 1
     ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
                               .split(".")[0] for t in done)
-    return {"per_row_step": len(done) / (rows * systems),
+    steps = sum("MUFU.RCP" in t for t in done) // 2
+    return {"per_row_step": len(done) / steps, "row_steps": steps,
             "ops": dict(ops.most_common())}
 
 
@@ -108,10 +111,6 @@ def main() -> int:
     ap.add_argument("--out", default="", help="append a JSON line here")
     ap.add_argument("--sass", action="store_true",
                     help="count the sweep loop's instructions per row step")
-    ap.add_argument("--rows", type=int, default=8,
-                    help="array rows one main-loop iteration sweeps")
-    ap.add_argument("--systems", type=int, default=4,
-                    help="systems one thread sweeps together")
     args = ap.parse_args()
 
     import torch
@@ -174,8 +173,7 @@ def main() -> int:
     result = {"label": args.label, "card": card, "calibration_ms": cal,
               "calibration_bound_ms": cal_bound, "rows": rows}
     if args.sass:
-        sass = sweep_loop_count(build.library_path("bitline"), args.rows,
-                                args.systems)
+        sass = sweep_loop_count(build.library_path("bitline"))
         mhz = max(r["sm_mhz"] for r in rows)
         ceiling = LANES / sass["per_row_step"] * SMS * mhz * 1e6
         steps = sum(r["row_steps_per_s"] * r["ms"] * 1e-3
