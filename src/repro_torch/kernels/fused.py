@@ -12,7 +12,8 @@
   both lines, the analog bit fold, one ADC per slice) in one launch.
 * :func:`flash_decode_cuda` — ``csrc/flash_decode.cu``, replacing
   ``repro.kernels.fused.flash_attention_pallas``: single-token decode
-  attention over the dense per-slot KV cache, masked by per-row fills.
+  attention over the dense per-slot KV cache, masked by per-row fills,
+  its positions split over a thread-block cluster per (row, KV head).
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
 output, launches on PyTorch's current stream, raises if the launch was
@@ -27,6 +28,7 @@ shared with the plain version so the two cannot diverge.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -133,8 +135,9 @@ def _check_launch(rc: int, what: str) -> None:
 _FUSED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 _PARASITIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
-_FLASH_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_FLASH_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                + [ctypes.c_float, ctypes.c_void_p])
+_SCRATCH_ARGS = [ctypes.c_int] * 7
 
 
 def _lib(name: str, entries, argtypes) -> ctypes.CDLL:
@@ -145,6 +148,27 @@ def _lib(name: str, entries, argtypes) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_bytes(lib: ctypes.CDLL, *shape: int) -> int:
+    """``repro_decode_scratch_bytes`` of one call shape, asked once."""
+    fn = lib.repro_decode_scratch_bytes
+    fn.argtypes = _SCRATCH_ARGS
+    fn.restype = ctypes.c_longlong
+    return int(fn(*shape))
+
+
+def decode_scratch(lib: ctypes.CDLL, b: int, capacity: int, kv_heads: int,
+                   group: int, hd: int, k: torch.Tensor,
+                   page_size: int) -> torch.Tensor:
+    """The global scratch a decode-attention launch writes before it reads:
+    every chunk's partial sums, and the logits of CTAs whose positions do
+    not fit their shared memory (``csrc/flash_decode.cu``; ``page_size`` 0
+    for the dense cache)."""
+    n = _scratch_bytes(lib, b, capacity, kv_heads, group, hd,
+                       k.element_size(), page_size)
+    return torch.empty(n, dtype=torch.uint8, device=k.device)
 
 
 def fused_mvm_cuda(
@@ -267,10 +291,12 @@ def flash_decode_cuda(
     lib = _lib("flash_decode",
                ("repro_flash_decode_f32", "repro_flash_decode_bf16"),
                _FLASH_ARGS)
+    scratch = decode_scratch(lib, b, seq, kv_heads, h // kv_heads, hd, k, 0)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             _ptr(qf), _ptr(k), _ptr(v), _ptr(lens), _ptr(out),
-            b, seq, h, kv_heads, hd, hd ** -0.5, _stream(dev))
+            _ptr(scratch), b, seq, h, kv_heads, hd, hd ** -0.5,
+            _stream(dev))
     _check_launch(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out

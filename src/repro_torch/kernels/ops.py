@@ -219,7 +219,9 @@ def paged_attention(
     kernel reads each row's pages through the block table (no gathered
     copy, the pool in its own dtype).  Returns (B, H, hd) in ``q``'s dtype.
     Positions at or beyond ``kv_len[b]`` contribute exact zeros, so the
-    table's tail past a row's fill is never read."""
+    table's tail past a row's fill is never read; a row with ``kv_len[b]``
+    0 has only masked logits and averages v over all ``NP * page_size``
+    positions, as the reference does."""
     _check_backend(backend, "paged_attention")
     if _plain(backend, q):
         out = _k_ref.paged_attention_decode(q, k_pages, v_pages, ptab, kv_len)
@@ -238,7 +240,9 @@ def flash_attention_decode(
 ) -> torch.Tensor:
     """Flash-decode attention over the dense per-slot KV cache, scaled by
     ``hd ** -0.5``; returns (B, H, hd) in ``q``'s dtype.  Positions at or
-    beyond ``kv_len[b]`` contribute exact zeros."""
+    beyond ``kv_len[b]`` contribute exact zeros; a row with ``kv_len[b]`` 0
+    has only masked logits and averages v over the cache zero-padded to
+    the reference's 8-position blocks, as the reference does."""
     _check_backend(backend, "flash_attention_decode")
     if _plain(backend, q):
         out = _k_ref.flash_attention_decode(q, k, v, kv_len)

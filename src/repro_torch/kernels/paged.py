@@ -22,9 +22,9 @@ import torch
 
 from repro_torch.kernels.fused import (LAUNCHES, MAX_GROUP, MAX_HEAD_DIM,
                                        _check_launch, _lib, _ptr, _require,
-                                       _stream)
+                                       _stream, decode_scratch)
 
-_PAGED_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+_PAGED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                + [ctypes.c_float, ctypes.c_void_p])
 _ENTRIES = ("repro_paged_decode_f32", "repro_paged_decode_bf16")
 
@@ -38,8 +38,10 @@ def paged_attention_cuda(
 ) -> torch.Tensor:
     """Launch the paged-attention kernel (scores scaled by ``hd ** -0.5``);
     returns float32 (B, H, hd).  Positions at or beyond ``kv_len[b]`` (or
-    ``NP * page_size``) are never read; a table entry outside ``[0, P)`` is
-    clamped into the pool."""
+    ``NP * page_size``) are never read, except in a row with
+    ``kv_len[b] <= 0``, which averages v over all ``NP * page_size``
+    positions as the plain version does; a table entry outside ``[0, P)``
+    is clamped into the pool."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs CUDA tensors, got {dev}")
@@ -67,11 +69,14 @@ def paged_attention_cuda(
         return out
     lib = _lib("flash_decode", _ENTRIES, _PAGED_ARGS)
     entry = _ENTRIES[0] if k_pages.dtype == torch.float32 else _ENTRIES[1]
+    n_pages = tab.shape[1]
+    scratch = decode_scratch(lib, b, n_pages * page_size, kv_heads,
+                             h // kv_heads, hd, k_pages, page_size)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             _ptr(qf), _ptr(k_pages), _ptr(v_pages), _ptr(tab), _ptr(lens),
-            _ptr(out), b, tab.shape[1], page_size, n_pool, h, kv_heads, hd,
-            hd ** -0.5, _stream(dev))
+            _ptr(out), _ptr(scratch), b, n_pages, page_size, n_pool,
+            h, kv_heads, hd, hd ** -0.5, _stream(dev))
     _check_launch(rc, "paged_attention")
     LAUNCHES["paged_attention"] += 1
     return out

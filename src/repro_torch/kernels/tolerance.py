@@ -35,6 +35,29 @@ Paged attention: the flash-decode bound, ``v`` being the gathered view
 flash-decode kernel sum in one order that depends on ``kv_len`` alone, so
 on a pool and the dense view gathered from it they agree to the bit.
 
+At tens of thousands of positions that bound is loose: ``kv_len * eps *
+max|v|`` exceeds a typical output, so a kernel that dropped a chunk of
+positions would pass it.  Beside it, a decode-attention result of a row of
+``n >= 1`` valid positions is also held against the same function
+evaluated in float64 on the same inputs, under a bound built from the
+output's own terms, ``A = sum_t p_t |v_t| / sum_t p_t``.  Treating the
+float32 rounding errors as independent, a sum of ``n`` terms errs by about
+``sqrt(n) * u`` of the sum of their magnitudes (the statistical estimate
+of Higham's *Accuracy and Stability of Numerical Algorithms*, sec. 2.8),
+so a logit of ``hd`` products errs by at most ``delta = 4 * eps * (sqrt(hd)
+* M + 1)``, ``M = max_t sum_d |scale * q_d * k_td|`` (its dot, the
+scaling, the subtraction of the max, and ``exp``), which moves the output
+by at most ``2 * delta * A``; the sums of ``p_t v_t`` and of ``p_t``, and
+the products, add ``8 * sqrt(n) * eps * A``.  Each element must lie within
+``4 ulp(|out|) + (2 * delta + 8 * sqrt(n) * eps) * A`` of the float64
+value.  Dropping one chunk of 256 of 32768 positions moves an output by
+about ``sqrt(e / 256) / 128``, several times that bound.
+
+A row with ``kv_len`` 0 has no valid position: every logit is the mask
+value, so the plain version (as the reference) averages ``v`` over the
+whole capacity.  Its bound is the flash-decode bound with the capacity in
+place of ``kv_len``.
+
 Design-D bit-serial MVM: the legacy bound (within 2 ulp or 0.25 of
 ``gain``), its ADC'd terms being each (partition, bit)'s dot, a one-code
 flip of bit ``b`` moving the output by ``gain * lsb * 2**b``.
@@ -104,6 +127,27 @@ PAGED_GRID = [c + ("float32",) for c in (
     (1, 2, 1, 8, 4, 2), (3, 4, 2, 8, 4, 4), (2, 4, 4, 16, 8, 2),
     (4, 8, 2, 32, 8, 4), (2, 2, 2, 8, 4, 1), (3, 2, 1, 8, 1, 6),
     (2, 6, 3, 8, 2, 5))] + [(4, 20, 20, 128, 8, 4, "bfloat16")]
+#: card-only decode-attention cases (s, kv, g, hd, dtype, page_size) at the
+#: edges of the kernel's split of positions (``csrc/flash_decode.cu``: chunks
+#: of ``ATTN_CHUNK`` positions, up to 8 CTAs a cluster): lengths 2048, 5000
+#: and 32768, g 1/4/8, hd 64/128/256, float32 and bfloat16 caches, pools of
+#: pages of 1, 16 and 64 positions (a table past the kernel's 1024
+#: shared-memory entries at 32768 x page 1, logits past its shared memory at
+#: 32768 x g 8), then rows of 24 bytes (hd 12, bf16), which the kernel
+#: copies with plain loads; each case's rows take the fills of
+#: :func:`attn_edge_fills`
+ATTN_EDGE_GRID = [(2048, 2, 1, 128, "bfloat16", 16),
+                  (2048, 2, 4, 64, "float32", 1),
+                  (2048, 1, 8, 256, "bfloat16", 64),
+                  (5000, 2, 1, 128, "float32", 64),
+                  (5000, 1, 4, 256, "bfloat16", 1),
+                  (5000, 2, 8, 64, "bfloat16", 16),
+                  (32768, 2, 1, 128, "bfloat16", 16),
+                  (32768, 1, 8, 256, "float32", 1),
+                  (32768, 1, 4, 64, "bfloat16", 64),
+                  (600, 2, 2, 12, "bfloat16", 4)]
+ATTN_CHUNK = 256      # positions per ordered chunk sum in the kernel
+ATTN_CLUSTER = 8      # most CTAs per (row, KV head)
 #: Design-D bit-serial cases (m, p, rows, n, n_bits): the first four legacy
 #: shapes and the edge shapes, at 4 and 7 input bits
 #: (``tests/test_kernels.py::test_analog_mvm_bitserial_matches_ref``)
@@ -156,6 +200,49 @@ def paged_case(b, h, kv, hd, ps, n_pages, seed=0):
         ptab[i, :used] = perm[i * n_pages:i * n_pages + used]
         kv_len[i] = n
     return q, k_pages, v_pages, ptab, kv_len
+
+
+def attn_edge_fills(s: int):
+    """Fills at the edges of the kernel's split of a capacity ``s``: 1, a
+    chunk - 1, a chunk, a chunk + 1, one CTA's span +- 1 and the full
+    capacity, deduplicated, ascending."""
+    n_ch = -(-s // ATTN_CHUNK)
+    c = min(ATTN_CLUSTER, n_ch)
+    span = -(-n_ch // c) * ATTN_CHUNK
+    fills = {1, ATTN_CHUNK - 1, ATTN_CHUNK, ATTN_CHUNK + 1, span - 1,
+             span + 1, s}
+    return sorted(f for f in fills if 1 <= f <= s)
+
+
+def attn_edge_case(s, kv, g, hd, dtype, ps, device, seed=0):
+    """One :data:`ATTN_EDGE_GRID` case, drawn on ``device`` from a seeded
+    generator: q (b, kv*g, hd) float32, a dense cache k, v (b, s, kv, hd)
+    in ``dtype``, the fills (b,) of :func:`attn_edge_fills`, and the same
+    cache as a pool: pages of ``ps`` positions (the last page's tail
+    random), shuffled, behind a sink page 0, with its (b, NP) table."""
+    fills = attn_edge_fills(s)
+    b = len(fills)
+    n_pages = -(-s // ps)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q = normal(b, kv * g, hd)
+    k = normal(b, n_pages * ps, kv, hd).to(dt)
+    v = normal(b, n_pages * ps, kv, hd).to(dt)
+    perm = 1 + torch.randperm(b * n_pages, generator=gen, device=device)
+    ptab = perm.reshape(b, n_pages).to(torch.int32)
+    k_pages = torch.empty((1 + b * n_pages, ps, kv, hd), dtype=dt,
+                          device=device)
+    v_pages = torch.empty_like(k_pages)
+    k_pages[0], v_pages[0] = normal(ps, kv, hd).to(dt), normal(ps, kv, hd).to(dt)
+    k_pages[ptab.long()] = k.reshape(b, n_pages, ps, kv, hd)
+    v_pages[ptab.long()] = v.reshape(b, n_pages, ps, kv, hd)
+    lens = torch.tensor(fills, dtype=torch.int32, device=device)
+    return (q, k[:, :s].contiguous(), v[:, :s].contiguous(), lens, k_pages,
+            v_pages, ptab)
 
 
 def bitserial_case(m, p, rows, n, n_bits, seed=None):
@@ -447,6 +534,50 @@ def flash_decode_check(
         "max_abs_err": float(d.max()) if d.numel() else 0.0,
         "max_bound_frac": float(frac.max()) if d.numel() else 0.0,
     }
+
+
+def attention_f64_check(
+    out: torch.Tensor,        # (B, H, hd) result under test
+    q: torch.Tensor,          # (B, H, hd) the operands it was computed from
+    k: torch.Tensor,          # (B, S, KV, hd)
+    v: torch.Tensor,          # (B, S, KV, hd)
+    kv_len: torch.Tensor,     # (B,) each in [1, S]
+) -> Dict[str, float]:
+    """Hold a decode-attention result against the same function in float64
+    (scores scaled by ``hd ** -0.5`` rounded to float32, as the kernels
+    take it) under the bound of the module docstring, built from each
+    output's own terms; returns ``ok``, ``bad``, ``max_abs_err`` and
+    ``max_bound_frac``.  Row by row, so a long cache is widened one row at
+    a time."""
+    dev = out.device
+    b, h, hd = q.shape
+    kv_heads = k.shape[2]
+    g = h // kv_heads
+    scale = float(np.float32(hd ** -0.5))
+    bad, max_err, max_frac = 0, 0.0, 0.0
+    for i in range(b):
+        n = int(kv_len[i])
+        if not 1 <= n <= k.shape[1]:
+            raise ValueError(f"row {i}: kv_len {n} outside [1, {k.shape[1]}]")
+        qs = q[i].to(dev, torch.float64).reshape(kv_heads, g, hd) * scale
+        ki = k[i, :n].to(dev, torch.float64)
+        vi = v[i, :n].to(dev, torch.float64)
+        s = torch.einsum("kgd,tkd->kgt", qs, ki)
+        mag = torch.einsum("kgd,tkd->kgt", qs.abs(), ki.abs()).amax(-1)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        den = p.sum(-1)[..., None]
+        ref = torch.einsum("kgt,tkd->kgd", p, vi) / den
+        terms = torch.einsum("kgt,tkd->kgd", p, vi.abs()) / den
+        delta = 4 * F32_EPS * (hd ** 0.5 * mag + 1)
+        bound = (FLASH_ULP * _spacing(ref.abs()).double()
+                 + (2 * delta[..., None] + 8 * n ** 0.5 * F32_EPS) * terms)
+        d = (out[i].to(dev, torch.float64).reshape(kv_heads, g, hd)
+             - ref).abs()
+        bad += int((d > bound).sum())
+        max_err = max(max_err, float(d.max()))
+        max_frac = max(max_frac, float((d / bound).max()))
+    return {"ok": bad == 0, "bad": bad, "max_abs_err": max_err,
+            "max_bound_frac": max_frac}
 
 
 def paged_attention_check(

@@ -11,7 +11,13 @@ kernels within 2 ulp or 0.25 of a dequant grid step (or of ``gain``),
 one-code ADC flips only where the pre-ADC value lies within 4 ulp of a
 rounding edge; bit-line currents within 2 ulp of ``|I|``; flash decode and
 paged attention within ``4 ulp + kv_len * eps * max|v|``, and the paged
-kernel equal to the flash-decode kernel on the gathered view to the bit.
+kernel equal to the flash-decode kernel on the gathered view to the bit,
+on the grids and on ``ATTN_EDGE_GRID``'s edges of the kernels' split of
+positions over a cluster (chunk and span edges, 2048 to 32768 positions,
+scratch and global-table paths, rows copied with plain loads); the
+attention kernels' result depends on
+each row's fill alone (not on the capacity, the batch, or a CUDA graph),
+and a row of fill 0 gives its plain version's mean of v over the capacity.
 The fused MVM kernel (both input modes), the legacy Design-A kernel and
 the Design-D bit-serial kernel are also held to their plain versions to
 the bit (``torch.equal``), on the grids and on the edges of their tiling:
@@ -38,13 +44,15 @@ from repro_torch.kernels import fused as t_fused
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import tolerance
 from repro_torch.kernels import build
-from repro_torch.kernels.tolerance import (BITLINE_GRID, BITSERIAL_GAIN,
+from repro_torch.kernels.tolerance import (ATTN_EDGE_GRID, BITLINE_GRID,
+                                           BITSERIAL_GAIN,
                                            BITSERIAL_GRID, BITSERIAL_RANGE,
                                            FLASH_GRID, FUSED_GRID,
                                            FUSED_PARASITIC_GRID, LEGACY_GAIN,
                                            LEGACY_GRID, LEGACY_PARASITIC_GRID,
                                            LEGACY_RANGE, PAGED_GRID,
-                                           bitline_case, bitserial_case,
+                                           attn_edge_case, bitline_case,
+                                           bitserial_case,
                                            flash_case, fused_case,
                                            fused_parasitic_case, legacy_case,
                                            paged_case)
@@ -632,3 +640,131 @@ def test_paged_kernel_server_agrees_with_decode_lm(cuda_device):
             lg = T.forward(cfg, params, seq, pack=pack)[0][0, -1]
             top2 = torch.topk(lg, 2).values
             assert float(top2[0] - top2[1]) < 1e-4 * float(lg.abs().max())
+
+
+def _gathered(pool, ptab):
+    b, npg = ptab.shape
+    _, ps, kv, hd = pool.shape
+    return pool[ptab.long()].reshape(b, npg * ps, kv, hd).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_EDGE_GRID, ids=_ids(ATTN_EDGE_GRID))
+def test_attention_kernels_match_plain_on_edge_grid(cuda_device, case):
+    """Both decode-attention kernels at the edges of their split of
+    positions (fills 1, a chunk +- 1, one CTA's span +- 1, the capacity):
+    within the bound of their plain versions, within the float64 bound of
+    ``tolerance.attention_f64_check`` (which a kernel that left out a chunk
+    of positions would fail where the first bound is loose, at 32768
+    positions), and the paged kernel on a shuffled pool equal to the
+    flash-decode kernel on the gathered view."""
+    q, k, v, lens, kp, vp, ptab = attn_edge_case(*case, device=cuda_device)
+    before = dict(t_fused.LAUNCHES)
+    flash = t_ops.flash_attention_decode(q, k, v, lens)
+    paged = t_ops.paged_attention(q, kp, vp, ptab, lens)
+    on_view = t_ops.flash_attention_decode(q, _gathered(kp, ptab),
+                                           _gathered(vp, ptab), lens)
+    torch.cuda.synchronize()
+    assert t_fused.LAUNCHES["flash_decode"] == before["flash_decode"] + 2
+    assert t_fused.LAUNCHES["paged_attention"] == \
+        before["paged_attention"] + 1
+    r = tolerance.flash_decode_check(
+        flash, t_ops.flash_attention_decode(q, k, v, lens, backend="oracle"),
+        v, lens)
+    assert r["ok"], r
+    r = tolerance.paged_attention_check(
+        paged, t_ops.paged_attention(q, kp, vp, ptab, lens, backend="oracle"),
+        vp, ptab, lens)
+    assert r["ok"], r
+    for out in (flash, paged):
+        r = tolerance.attention_f64_check(out, q, k, v, lens)
+        assert r["ok"], r
+    assert torch.equal(paged, on_view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_attention_kernel_empty_row_gives_plain(cuda_device, paged):
+    """A row of fill 0 has every logit at the mask value in the plain
+    version, which then averages v over the capacity (the dense cache
+    padded to its 8-position blocks, the pool's NP * page_size positions);
+    the kernel gives the same.  The bound is the flash-decode bound with the
+    capacity in place of that row's fill, since every position is summed."""
+    if paged:
+        q, k, v, ptab, lens = _paged_on(cuda_device,
+                                        (3, 8, 2, 32, 8, 5, "bfloat16"))
+        cap = ptab.shape[1] * k.shape[1]
+    else:
+        q, k, v, lens = (torch.as_tensor(a, device=cuda_device)
+                         for a in flash_case(3, 300, 2, 4, 64, seed=4))
+        cap = k.shape[1]
+    lens[1] = 0
+    if paged:
+        out = t_ops.paged_attention(q, k, v, ptab, lens)
+        ref = t_ops.paged_attention(q, k, v, ptab, lens, backend="oracle")
+    else:
+        out = t_ops.flash_attention_decode(q, k, v, lens)
+        ref = t_ops.flash_attention_decode(q, k, v, lens, backend="oracle")
+    torch.cuda.synchronize()
+    assert bool(ref[1].abs().max() > 0)
+    bound_lens = lens.clone()
+    bound_lens[1] = cap
+    r = (tolerance.paged_attention_check(out, ref, v, ptab, bound_lens)
+         if paged else tolerance.flash_decode_check(out, ref, v, bound_lens))
+    assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [300, 2048])
+def test_attention_kernel_is_capacity_invariant(cuda_device, s):
+    """The same rows in a cache of S and of 2S positions (other cluster
+    sizes and spans per CTA) give the same bits, dense and paged."""
+    q, k, v, lens = (torch.as_tensor(a, device=cuda_device)
+                     for a in flash_case(4, s, 2, 2, 128, seed=6))
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    lens[0] = s
+    k2, v2 = torch.randn_like(torch.cat([k, k], 1).float()).to(k.dtype), \
+        torch.randn_like(torch.cat([v, v], 1).float()).to(v.dtype)
+    k2[:, :s], v2[:, :s] = k, v
+    base = t_ops.flash_attention_decode(q, k, v, lens)
+    assert torch.equal(base, t_ops.flash_attention_decode(q, k2, v2, lens))
+    ps = 4
+    pool_k, pool_v = (t.reshape(-1, ps, 2, 128) for t in (k2, v2))
+    npg = 2 * s // ps
+    tab = torch.arange(4 * npg, device=cuda_device, dtype=torch.int32) \
+        .reshape(4, npg)
+    assert torch.equal(base, t_ops.paged_attention(q, pool_k, pool_v, tab,
+                                                   lens))
+    assert torch.equal(base, t_ops.paged_attention(
+        q, pool_k, pool_v, tab[:, :s // ps].contiguous(), lens))
+
+
+@pytest.mark.cuda
+def test_attention_kernel_is_batch_invariant(cuda_device):
+    """A row alone gives the same bits as the same row in a batch of 4."""
+    q, k, v, lens = (torch.as_tensor(a, device=cuda_device)
+                     for a in flash_case(4, 2048, 2, 4, 128, seed=7))
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    full = t_ops.flash_attention_decode(q, k, v, lens)
+    for i in range(4):
+        assert torch.equal(full[i:i + 1], t_ops.flash_attention_decode(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], lens[i:i + 1]))
+
+
+@pytest.mark.cuda
+def test_attention_kernel_graph_capture_equals_eager(cuda_device):
+    """A call captured in a CUDA graph and replayed equals an eager call,
+    dense and paged, including a call whose logits go to the scratch."""
+    q, k, v, lens, kp, vp, ptab = attn_edge_case(
+        32768, 1, 8, 256, "float32", 1, device=cuda_device, seed=3)
+    calls = (lambda: t_ops.flash_attention_decode(q, k, v, lens),
+             lambda: t_ops.paged_attention(q, kp, vp, ptab, lens))
+    eager = [f() for f in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, outs):
+        assert torch.equal(a, b)

@@ -16,11 +16,12 @@ import pytest
 import torch
 
 from repro.kernels import ops as j_ops
+from repro.kernels import ref as j_ref
 from repro_torch.kernels import fused as t_fused
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import tolerance
 from repro_torch.kernels.tolerance import (FLASH_GRID, FUSED_GRID, flash_case,
-                                           fused_case)
+                                           fused_case, paged_case)
 from test_torch_cuda import _ids
 
 
@@ -57,6 +58,73 @@ def test_plain_flash_decode_matches_jax_oracle(b, s, kv, g, hd):
                                      torch.as_tensor(v),
                                      torch.as_tensor(fills))
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_plain_decode_attention_empty_row_matches_jax_oracle(paged):
+    """A row of fill 0: every logit is the mask value, so the reference
+    averages v over the capacity (the dense cache zero-padded to its
+    8-position blocks; the pool's NP * page_size positions, page_size 1
+    included), and so does the plain version.  Bound: the flash-decode
+    bound with the capacity in place of that row's fill."""
+    if paged:
+        cases = [paged_case(3, 4, 2, 8, ps, 5, seed=2) for ps in (4, 1)]
+    else:
+        q, k, v, fills = flash_case(3, 13, 2, 2, 8, seed=1)
+        cases = [(q, k, v, fills)]
+    for case in cases:
+        case[-1][1] = 0
+        t = [torch.as_tensor(a) for a in case]
+        if paged:
+            got = t_ops.paged_attention(*t)
+            wants = [j_ops.paged_attention(*(jnp.asarray(a) for a in case)),
+                     j_ref.paged_attention_decode(*(jnp.asarray(a)
+                                                    for a in case))]
+            cap = case[3].shape[1] * case[1].shape[1]
+        else:
+            got = t_ops.flash_attention_decode(*t)
+            wants = [j_ops.flash_attention_decode(
+                *(jnp.asarray(a) for a in case), backend="oracle")]
+            cap = case[1].shape[1]
+        lens = t[-1].clone()
+        lens[1] = cap
+        assert float(got[1].abs().max()) > 0
+        for want in wants:
+            want = torch.as_tensor(np.array(want))
+            r = (tolerance.paged_attention_check(want, got, t[2], t[3], lens)
+                 if paged else
+                 tolerance.flash_decode_check(want, got, t[2], lens))
+            assert r["ok"], r
+
+
+@pytest.mark.parametrize("drop", [0, tolerance.ATTN_CHUNK, 32768 // 8],
+                         ids=["none", "chunk", "span"])
+def test_attention_f64_check_holds_plain_and_catches_dropped_positions(drop):
+    """``tolerance.attention_f64_check`` at 32768 positions (the full row of
+    ``ATTN_EDGE_GRID``'s hd-64 case), where the flash-decode bound exceeds a
+    typical output: the JAX oracle's and the plain version's results lie
+    within it, and a result that left out one chunk of 256 positions, or
+    one CTA's span of an eighth of them, has most elements outside it."""
+    case = next(c for c in tolerance.ATTN_EDGE_GRID
+                if c[0] == 32768 and c[3] == 64)
+    q, k, v, lens = tolerance.attn_edge_case(*case, device="cpu")[:4]
+    q, k, v, lens = q[-1:], k[-1:], v[-1:], lens[-1:]
+    n = int(lens[0])
+    assert n == 32768
+    if drop:
+        keep = torch.cat([torch.arange(drop), torch.arange(2 * drop, n)])
+        got = t_ops.flash_attention_decode(q, k[:, keep], v[:, keep],
+                                           lens - drop)
+        r = tolerance.attention_f64_check(got, q, k, v, lens)
+        assert r["bad"] > got.numel() // 2, r
+        return
+    want = j_ops.flash_attention_decode(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        jnp.asarray(lens.numpy()), backend="oracle")
+    for out in (torch.as_tensor(np.array(want)),
+                t_ops.flash_attention_decode(q, k, v, lens)):
+        r = tolerance.attention_f64_check(out, q, k, v, lens)
+        assert r["ok"], r
 
 
 def test_plain_flash_decode_ignores_cache_tail():

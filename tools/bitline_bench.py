@@ -40,7 +40,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-HERE = Path(__file__).resolve().parents[1]
+import kernel_tree as kt
+
 R_HAT = 1e-4
 N_BITS = 7
 ROWS = 128            # calibration activation rows per plane
@@ -105,7 +106,7 @@ def sweep_loop_count(lib: Path, kernel: str = "bitline_mvm_kernel") -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=str(HERE),
+    ap.add_argument("--tree", default=str(kt.HERE),
                     help="root of the checkout to time (default: this one)")
     ap.add_argument("--label", default="", help="name printed on each line")
     ap.add_argument("--out", default="", help="append a JSON line here")
@@ -118,8 +119,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bitline_bench: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
-    sys.path.insert(1, str(HERE))
+    kt.use_tree(args.tree)
     import chip_smoke as cs
     from repro_torch.core import analog as A
     from repro_torch.core import errors as E

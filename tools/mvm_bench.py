@@ -30,15 +30,15 @@ import argparse
 import dataclasses
 import json
 import sys
-from pathlib import Path
 
-HERE = Path(__file__).resolve().parents[1]
+import kernel_tree as kt
+
 PER_STEP = {"wq": 16, "w_gate": 8, "w_down": 4, "head": 1}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=str(HERE),
+    ap.add_argument("--tree", default=str(kt.HERE),
                     help="root of the checkout to time (default: this one)")
     ap.add_argument("--label", default="", help="name printed on each line")
     ap.add_argument("--out", default="", help="append a JSON line here")
@@ -49,8 +49,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("mvm_bench: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
-    sys.path.insert(1, str(HERE))
+    kt.use_tree(args.tree)
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.core import analog as A

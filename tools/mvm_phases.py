@@ -23,13 +23,12 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
-from pathlib import Path
 
+import kernel_tree as kt
 import numpy as np
 
-ROOT = Path(__file__).resolve().parents[1]
-CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-OUT = ROOT / "build" / "mvm_phases"
+CSRC = kt.HERE / "src" / "repro_torch" / "kernels" / "csrc"
+OUT = kt.HERE / "build" / "mvm_phases"
 MAX_BLOCKS = 65536
 
 #: (anchor line, text inserted before it, text inserted after it)
@@ -74,12 +73,10 @@ CASES = [("wq", 2560, 2560, 4), ("w_gate", 2560, 6912, 4),
 
 
 def instrumented_source() -> str:
-    src = (CSRC / "fused_mvm.cu").read_text()
-    for anchor, before, after in PROBES:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"fused_mvm.cu no longer has one {anchor!r}")
-        src = src.replace(anchor, before + anchor + after)
-    return src + FETCH
+    edits = [(anchor, before + anchor + after)
+             for anchor, before, after in PROBES]
+    return kt.patch((CSRC / "fused_mvm.cu").read_text(), edits,
+                    "fused_mvm.cu") + FETCH
 
 
 def main() -> int:
@@ -88,8 +85,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("mvm_phases: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(1, str(ROOT))
+    kt.use_tree(kt.HERE)
     import chip_smoke as cs
     from repro_torch.kernels import build
 

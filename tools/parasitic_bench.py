@@ -34,9 +34,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from pathlib import Path
 
-HERE = Path(__file__).resolve().parents[1]
+import kernel_tree as kt
+
 R_HAT = 1e-4
 M = 4                 # decode rows (4 serving slots)
 N_BITS = 7
@@ -51,7 +51,7 @@ SASS_NAMES = {"fused_mvm_parasitic": "parasitic_fold_kernelILb0E",
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=str(HERE),
+    ap.add_argument("--tree", default=str(kt.HERE),
                     help="root of the checkout to time (default: this one)")
     ap.add_argument("--label", default="", help="name printed on each line")
     ap.add_argument("--out", default="", help="append a JSON line here")
@@ -64,9 +64,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("parasitic_bench: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
-    sys.path.insert(1, str(HERE))
-    sys.path.insert(2, str(HERE / "tools"))
+    kt.use_tree(args.tree)
     import bitline_bench as bb
     import chip_smoke as cs
     from repro_torch.core import analog as A

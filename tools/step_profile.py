@@ -26,7 +26,7 @@ import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+import kernel_tree as kt
 
 
 def busy_ms(events) -> float:
@@ -108,8 +108,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("step_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(1, str(ROOT))
+    kt.use_tree(kt.HERE)
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.core import analog as A
