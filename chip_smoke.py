@@ -76,7 +76,21 @@ lines:
    before and read just after; it is held against its plain version (to
    the bit) on ``tolerance.BITSERIAL_GRID`` and at those four sites, and
    timed there on the device alone (a CUDA graph of ten launches, as is
-   its ``torch.matmul`` yardstick) beside the wrapper's time per call.
+   its ``torch.matmul`` yardstick) beside the wrapper's time per call;
+8. path PD — drift, stuck-cell faults and self-healing on the main path's
+   params, requests and calibration tokens, under benchmarks/driftbench.py's
+   spec on the kernel route (``PackManager``; ``ServeRuntime(attn_backend=
+   "flash")`` and ``PagedServeRuntime(backend="kernel")`` given a manager,
+   a ``DriftClock`` and a ``HealPolicy``).  Gates: ``aged(1.0)`` equals the
+   fresh pack tensor for tensor, aging at 64 differs and replays; healing
+   that changes no value leaves the dense and paged runtimes' tokens as
+   they were; a pack reprogrammed at 16 and recalibrated at 64 serves
+   ``decode_lm``'s tokens but at near ties; the fused MVM, flash-decode and
+   paged-attention kernels launch, and the fused MVM kernel equals its
+   plain version at the health probe's 124 rows.  Printed only: the
+   healing trace heal-off and heal-on, the seconds spent aging,
+   reprogramming, recalibrating and probing, the decode step on the healed
+   pack and the peak device memory.
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON (the
@@ -129,6 +143,9 @@ PAGED_REPLACES = "src/repro/kernels/paged.py:111"   # paged_attention_pallas
 BITSERIAL_REPLACES = "src/repro/kernels/analog_mvm.py:141"
 R_HAT = 1e-4          # the middle of the paper's Fig. 19 axis
 PAGE_SIZE = 8         # path PG's page (max_len 32 = 4 pages per slot)
+PD_SEED = 7           # path PD's programming seed (the main path's)
+PD_HEAL_AT, PD_AGE = 16.0, 64.0   # PD's reprogram age and served age
+PD_HORIZON = 256.0    # the healing trace's final age (driftbench's)
 
 
 def card_line() -> str:
@@ -1464,6 +1481,280 @@ def bitserial_full_width(torch, ops, tol, cfg, pack, kern_fused):
     return tot
 
 
+# ---------------------------------------------------------------------------
+# path PD: drift, stuck-cell faults and self-healing serving
+# ---------------------------------------------------------------------------
+
+
+def pack_tensors(pack) -> list:
+    """Every tensor of a pack (conductances, scales, ranges), in order."""
+    out = []
+    for name in sorted(pack.layer_weights):
+        aw = pack.layer_weights[name]
+        out += [aw.g_pos, aw.g_neg, aw.g_unit, aw.w_scale]
+    for d in (pack.layer_lo, pack.layer_hi, pack.layer_act):
+        out += [d[n] for n in sorted(d)]
+    if pack.head is not None:
+        out += [pack.head.g_pos, pack.head.g_neg, pack.head.g_unit,
+                pack.head.w_scale]
+    return out + [pack.head_lo, pack.head_hi, pack.head_act]
+
+
+def packs_equal(torch, a, b) -> bool:
+    """``torch.equal`` on every tensor of two packs."""
+    ta, tb = pack_tensors(a), pack_tensors(b)
+    return len(ta) == len(tb) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for x, y in zip(ta, tb))
+
+
+def timed_manager_class(torch, secs: dict):
+    """A ``PackManager`` subclass whose aging, reprogramming, recalibration
+    and probe methods add their synchronized seconds to ``secs``.  (A
+    subclass, not wrappers set on an instance: those would hold the
+    instance in a reference cycle, and its packs would outlive ``del``.)"""
+    from repro_torch.serve import PackManager
+
+    def timed(name, key):
+        method = getattr(PackManager, name)
+
+        def call(self, *a, **kw):
+            t = time.perf_counter()
+            out = method(self, *a, **kw)
+            torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    return type("TimedPackManager", (PackManager,), {
+        name: timed(name, key) for name, key in (
+            ("aged", "age"), ("reprogram_band", "reprogram"),
+            ("reprogram_head", "reprogram"), ("recalibrate", "recalibrate"),
+            ("probe_loss", "probe"))})
+
+
+def drift_spec(A, E):
+    """benchmarks/driftbench.py's DRIFT_SPEC on the kernel route: Design A
+    under 5% state-proportional error, power-law drift (nu 0.2, sigma_nu
+    0.3) and stuck cells at 1e-5 per cell per t0 of age."""
+    return A.design_a(error=E.state_proportional(0.05),
+                      drift=E.power_law_drift(0.2, sigma_nu=0.3),
+                      fault=E.stuck_faults(1e-5), fused="kernel")
+
+
+def serve_managed(torch, cfg, params, reqs, paged=False, **kw):
+    """Serve ``reqs`` through ``ServeRuntime(attn_backend="flash")`` or
+    ``PagedServeRuntime(backend="kernel", page_size=8)``, with ``kw``
+    (``manager=``, ``clock=``, ``heal=``, ``pack=``): (outputs in request
+    order, the runtime)."""
+    from repro_torch.serve import PagedServeRuntime, ServeRuntime
+
+    if paged:
+        rt = PagedServeRuntime(cfg, params, page_size=PAGE_SIZE,
+                               backend="kernel", max_slots=4,
+                               max_len=MAX_LEN, **kw)
+    else:
+        rt = ServeRuntime(cfg, params, attn_backend="flash", max_slots=4,
+                          max_len=MAX_LEN, **kw)
+    uids = [rt.submit(p, max_new_tokens=m) for p, m in reqs]
+    outs = rt.run()
+    if paged:
+        rt.check()
+    return [outs[u] for u in uids], rt
+
+
+def healing_trace(torch, A, E, cfg, params, reqs, calib, steps: int,
+                  heal: bool):
+    """driftbench's healing trace on ``reqs``: a manager under
+    ``drift_spec`` aged by ``DriftClock(PD_HORIZON / steps, 4)`` through
+    the served run, healing under ``HealPolicy(check_every=4,
+    bands_per_step=1)`` or not at all.  Returns (final probe loss, the
+    fresh pack's, the runtime's stats, seconds per maintenance kind)."""
+    from repro_torch.serve import DriftClock, HealPolicy
+
+    secs: dict = {}
+    m = timed_manager_class(torch, secs)(cfg, params, drift_spec(A, E),
+                                         PD_SEED, calib_tokens=calib)
+    clock = DriftClock(dt_per_step=PD_HORIZON / steps, update_every=4)
+    policy = HealPolicy(check_every=4, bands_per_step=1) if heal else None
+    outs, rt = serve_managed(torch, cfg, params, reqs, manager=m,
+                             clock=clock, heal=policy)
+    for (p, n), out in zip(reqs, outs):
+        if out.shape != (n,) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"bad completion {out} for budget {n}")
+    loss = m.probe_loss(rt.pack)
+    return loss, m.ref_loss, rt.stats, secs
+
+
+def path_pd(torch, cfg, params, reqs, calib, kern_fused):
+    """Path PD: drift, stuck-cell faults and self-healing on the main
+    path's params, requests and calibration tokens, through B1, B2 (dense
+    runtime) and B3 (paged runtime).  Four gates, each raising on failure:
+    1. ``PackManager.aged(1.0)`` equals the fresh pack tensor for tensor;
+       aging at ``PD_AGE`` differs and replays;
+    2. healing that changes no value (``drift=power_law_drift(0.0)``, no
+       programming error) leaves the served tokens as they were, dense and
+       paged, with heal events, reprogrammed bands and a recalibration;
+    3. on a pack reprogrammed at ``PD_HEAL_AT`` and recalibrated at
+       ``PD_AGE``, the runtime agrees with ``decode_lm`` but at near ties;
+    4. B1, B2 and B3 launch in PD's run, and B1's outputs at the probe's
+       shape (M = 4 x 31) equal its plain version's on the aged pack.
+    Then driftbench's healing trace, heal-off and heal-on, printed only.
+    Returns PD's launch counts and its numbers."""
+    import numpy as np
+
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.kernels import ops
+    from repro_torch.serve import HealPolicy
+
+    t_pd = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern_fused.reset_launch_counts()
+    secs: dict = {}
+    Manager = timed_manager_class(torch, secs)
+
+    # gate 1: the fresh age changes nothing; aging differs and replays
+    t = time.perf_counter()
+    m = Manager(cfg, params, drift_spec(A, E), PD_SEED, calib_tokens=calib)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    if not packs_equal(torch, m.aged(1.0), m.fresh_pack):
+        raise AssertionError("path PD: aged(1.0) != the fresh pack")
+    aged = m.aged(PD_AGE)
+    if packs_equal(torch, aged, m.fresh_pack):
+        raise AssertionError(f"path PD: aging to {PD_AGE} changed nothing")
+    if not packs_equal(torch, aged, m.aged(PD_AGE)):
+        raise AssertionError("path PD: aging does not replay")
+    # gate 4's hold of B1 at the probe's shape: each launch of the probe
+    # on the aged pack against its plain version on the same operands (the
+    # plain version launches nothing)
+    probe_rows = []
+    fused_mvm = ops.fused_mvm
+
+    def holding(x, gp, gm, **kw):
+        y = fused_mvm(x, gp, gm, **kw)
+        if not torch.equal(y, fused_mvm(x, gp, gm,
+                                        **dict(kw, backend="oracle"))):
+            raise AssertionError(f"path PD: B1 at the probe's shape "
+                                 f"{tuple(x.shape)} x {tuple(gp.shape)} is "
+                                 f"not its plain version to the bit")
+        probe_rows.append(x.shape[0])
+        return y
+
+    with swapped(ops, fused_mvm=holding):
+        aged_loss = m.probe_loss(aged)
+    del aged
+    if set(probe_rows) != {4 * (calib.shape[1] - 1)}:
+        raise AssertionError(f"path PD: B1's probe rows {set(probe_rows)}")
+    print(f"path PD gate 1: manager built (program + calibrate + probe) in "
+          f"{build_s:.2f} s; aged(1.0) equal to the fresh pack, tensor for "
+          f"tensor; aged({PD_AGE:g}) differs and replays; probe loss fresh "
+          f"{m.ref_loss:.4f}, aged({PD_AGE:g}) {aged_loss:.4f}", flush=True)
+
+    # gate 3: reprogram at PD_HEAL_AT, recalibrate at PD_AGE, serve
+    for target in m.heal_targets():
+        if target == "head":
+            m.reprogram_head(t_now=PD_HEAL_AT)
+        else:
+            m.reprogram_band(target, t_now=PD_HEAL_AT)
+    healed = m.recalibrate(m.aged(PD_AGE))
+    healed_loss = m.probe_loss(healed)
+    outs, rt = serve_managed(torch, cfg, params, reqs, pack=healed)
+    ties = 0
+    for (p, n), out, ref in zip(reqs, outs,
+                                decode_refs(torch, cfg, params, healed, reqs)):
+        if out.shape != (n,) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"bad completion {out} for budget {n}")
+        if (out != ref).any():
+            if not near_tie(torch, cfg, params, healed, p, ref, out):
+                raise AssertionError(f"path PD: runtime left decode_lm away "
+                                     f"from a near tie on the healed pack: "
+                                     f"{out} vs {ref}")
+            ties += 1
+    step = decode_step_s(torch, cfg, params, healed, reqs)
+    print(f"path PD gate 3: reprogrammed {m.heal_targets()} at "
+          f"{PD_HEAL_AT:g}, recalibrated at {PD_AGE:g} (probe loss "
+          f"{healed_loss:.4f}); ServeRuntime(flash) vs decode_lm: "
+          f"{len(reqs) - ties}/{len(reqs)} requests identical, {ties} "
+          f"near-tie departures; decode step on the healed pack (4 rows, "
+          f"{cfg.n_layers} layers, flash attention) {step * 1e3:.3f} ms",
+          flush=True)
+    del m, healed, rt
+
+    # gate 2: healing that changes no value changes no token
+    m0 = Manager(cfg, params, A.design_a(
+        error=E.none(), drift=E.power_law_drift(0.0), fused="kernel"),
+        PD_SEED, calib_tokens=calib)
+    plain, rt = serve_managed(torch, cfg, params, reqs, manager=m0)
+    steps = rt.stats["decode_steps"]
+    force = HealPolicy(check_every=1, loss_mult=0.0, loss_add=-1.0,
+                       bands_per_step=1)
+    runs = {}
+    for label, paged in (("dense", False), ("paged", True)):
+        outs, rt = serve_managed(torch, cfg, params, reqs, paged=paged,
+                                 manager=m0, heal=force)
+        s = rt.stats
+        same = sum(bool(np.array_equal(a, b)) for a, b in zip(outs, plain))
+        runs[label] = (same, s)
+        if same != len(reqs) or s["heal_events"] < 1 \
+                or s["bands_reprogrammed"] < 2 or s["recalibrations"] < 1:
+            raise AssertionError(f"path PD gate 2 ({label}): {same}/"
+                                 f"{len(reqs)} requests equal to the unhealed "
+                                 f"run; stats {s}")
+    print("path PD gate 2: forced healing with aging that changes no value: "
+          + "; ".join(f"{k} {same}/{len(reqs)} requests equal to the "
+                      f"unhealed dense run ({s['heal_events']} heal events, "
+                      f"{s['bands_reprogrammed']} bands reprogrammed, "
+                      f"{s['recalibrations']} recalibrations)"
+                      for k, (same, s) in runs.items()), flush=True)
+    del m0, rt
+
+    # driftbench's healing trace (printed only: random weights)
+    trace = {}
+    for heal in (False, True):
+        trace[heal] = healing_trace(torch, A, E, cfg, params, reqs, calib,
+                                    steps, heal)
+    torch.cuda.synchronize()
+    counts = dict(kern_fused.LAUNCHES)
+    wall = time.perf_counter() - t_pd
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # gate 4: B1, B2, B3 launched (B1 held at the probe's shape in gate 1)
+    if not (counts["fused_mvm"] and counts["flash_decode"]
+            and counts["paged_attention"]):
+        raise AssertionError(f"path PD did not launch B1, B2 and B3: {counts}")
+    print(f"path PD gate 4: launches {counts}; B1 at the probe's shape "
+          f"(M = {probe_rows[0]}) equal to its plain version in all "
+          f"{len(probe_rows)} launches of the probe on the aged pack",
+          flush=True)
+
+    (off, ref, s_off, _), (on, _, s_on, heal_secs) = trace[False], trace[True]
+    tol = ref * 1.35 + 0.2
+    print(f"path PD healing trace (DriftClock {PD_HORIZON:g}/{steps} a step, "
+          f"update_every 4; random weights, printed only): fresh probe loss "
+          f"{ref:.4f}, tolerance ref*1.35+0.2 = {tol:.4f}; heal-off final "
+          f"{off:.4f} ({'within' if off < tol else 'breaks'} tolerance, "
+          f"{s_off['decode_steps']} decode steps); heal-on final {on:.4f} "
+          f"({'within' if on < tol else 'breaks'} tolerance; "
+          f"{s_on['heal_events']} heal events, {s_on['bands_reprogrammed']} "
+          f"bands, {s_on['recalibrations']} recalibrations, probes "
+          f"{[round(v, 4) for v in s_on['probe_losses']]})", flush=True)
+    maint = {k: heal_secs.get(k, 0.0)
+             for k in ("age", "reprogram", "recalibrate", "probe")}
+    print(f"path PD maintenance seconds (heal-on trace): aging "
+          f"{maint['age']:.3f}, reprogramming {maint['reprogram']:.3f}, "
+          f"recalibrating {maint['recalibrate']:.3f}, probing "
+          f"{maint['probe']:.3f}; over gates 1-3: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(secs.items()))
+          + f"; peak memory {peak:.2f} GiB; path PD in {wall:.1f} s",
+          flush=True)
+    return counts, {"step_s": step, "maint_s": maint, "peak_gib": peak,
+                    "wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -1558,6 +1849,14 @@ def main() -> int:
     print(f"Design D at four full-width sites in {time.perf_counter() - t:.1f}"
           f" s", flush=True)
     del pack
+    torch.cuda.empty_cache()
+    pd_counts, pd = path_pd(torch, cfg, params, reqs, calib, kern_fused)
+    print(f"path PD decode step (4 rows, {cfg.n_layers} layers, flash "
+          f"attention, healed pack): {pd['step_s'] * 1e3:.3f} ms, "
+          f"{4 / pd['step_s']:.1f} tokens/s on {card}; launches "
+          f"fused_mvm={pd_counts['fused_mvm']} flash_decode="
+          f"{pd_counts['flash_decode']} paged_attention="
+          f"{pd_counts['paged_attention']}", flush=True)
 
     kernels = [
         {"name": "fused_mvm", "route": "cuda",

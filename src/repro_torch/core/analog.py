@@ -191,7 +191,10 @@ def program_from_codes(pm: ProgrammedMatrix, spec: AnalogSpec,
 
     Programming noise for the positive, negative and unit lines comes
     from three generators folded from ``seed``; ``None`` programs
-    error-free.
+    error-free.  Aging at the spec's own ages (``spec.drift.t``,
+    ``spec.fault.t``) follows, seeded by ``fold_seed(seed, _AGE_FOLD)``,
+    on the partitioned stacks (padded rows included), so the noise draws
+    do not depend on whether aging is on.
     """
     k, n = pm.k, pm.n
     pw = codes_to_weights(pm.codes, spec.mapping)
@@ -203,10 +206,50 @@ def program_from_codes(pm: ProgrammedMatrix, spec: AnalogSpec,
         lines = [None if g is None else spec.error.perturb(
                      g, generator(fold_seed(seed, i), g.device))
                  for i, g in enumerate(lines)]
+    if spec.aging_on and seed is not None:
+        lines = age_conductances(*lines, spec, fold_seed(seed, _AGE_FOLD))
     dt = spec.compute_dtype
     g_pos, g_neg, g_unit = (None if g is None else g.to(dt) for g in lines)
     return AnalogWeights(g_pos=g_pos, g_neg=g_neg, g_unit=g_unit,
                          w_scale=pm.w_scale, k=k, n=n)
+
+
+#: fold tag of the aging seed (the reference's "age"); disjoint from the
+#: three programming-noise folds 0, 1, 2
+_AGE_FOLD = 0x616765
+
+
+def age_conductances(
+    g_pos: torch.Tensor,
+    g_neg: Optional[torch.Tensor],
+    g_unit: Optional[torch.Tensor],
+    spec: AnalogSpec,
+    seed: int,
+    *,
+    t_drift=None,
+    t_fault=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Apply ``spec.drift`` then ``spec.fault`` to a conductance stack.
+
+    Drift decays the programmed (noise-perturbed) values; faults then pin
+    cells whatever was programmed into them.  One stream per line, folded
+    from ``seed``.  ``t_drift``/``t_fault`` default to the spec's own ages;
+    the healer passes them per band (``repro_torch.serve.health``: drift
+    restarts at each reprogram, faults accumulate in absolute time).  At
+    ``t = 1`` both passes return values equal to their inputs.
+    """
+    td = spec.drift.t if t_drift is None else t_drift
+    tf = spec.fault.t if t_fault is None else t_fault
+    sd, sf = fold_seed(seed, "drift"), fold_seed(seed, "fault")
+    gs = [g_pos, g_neg, g_unit]
+    if spec.drift.kind != "none":
+        gs = [None if g is None else spec.drift.apply(g, td, fold_seed(sd, i))
+              for i, g in enumerate(gs)]
+    if spec.fault.kind != "none":
+        gs = [None if g is None else spec.fault.apply(
+                  g, tf, fold_seed(sf, i), g_lo=spec.mapping.g_min, g_hi=1.0)
+              for i, g in enumerate(gs)]
+    return gs[0], gs[1], gs[2]
 
 
 def program(w: torch.Tensor, spec: AnalogSpec,

@@ -5,9 +5,15 @@ Zero-mean Gaussian perturbations of normalized conductances, drawn once
 per programmed chip from an explicit ``torch.Generator``.  It cannot
 replay ``jax.random``, so the port is held to the reference by the
 statistics of these draws, and downstream stages by loading the
-reference's programmed conductances (``repro_torch.interop``).  Drift and
-stuck-cell faults are a later slice: :class:`DriftModel` and
-:class:`FaultModel` keep the spec's fields but accept only ``"none"``.
+reference's programmed conductances (``repro_torch.interop``).
+
+Device state is also time-dependent: :class:`DriftModel` decays programmed
+conductances by the retention power law and :class:`FaultModel` pins
+stuck-at cells arriving as a Poisson process.  Both are off by default,
+seeded like programming errors, and exactly the identity at the fresh age
+``t = 1``.  A seed replays on one device only: CPU and CUDA generators
+draw different streams, so only the statistics of the draws cross devices
+(and cross to ``jax.random``).
 """
 
 from __future__ import annotations
@@ -20,8 +26,6 @@ import torch
 
 SONOS_SAT = 0.05 / 1.6
 SONOS_KNEE = SONOS_SAT / 0.06
-
-_AGING_ITEM = "ROADMAP queue A item 8 (drift and healing)"
 
 
 def fold_seed(seed: int, data) -> int:
@@ -77,38 +81,104 @@ class ErrorModel:
         return out
 
 
-def _only_none(model: str, kind: str, kinds) -> None:
-    if kind not in kinds:
-        raise ValueError(f"{model}.kind must be one of {kinds}, got {kind!r}")
-    if kind != "none":
-        raise NotImplementedError(
-            f"{model}(kind={kind!r}) is not ported yet; see {_AGING_ITEM}")
-
-
 @dataclasses.dataclass(frozen=True)
 class DriftModel:
-    """Retention drift; only ``kind="none"`` is ported so far."""
+    """Time-dependent conductance decay; ``kind = 'none'`` disables it.
+
+    ``power_law``: ``g(t) = g0 * t^-nu_cell`` with the per-cell exponent
+    ``nu_cell = nu * exp(sigma_nu * z)``, ``z ~ N(0, 1)``, drawn once per
+    device from the seed (lognormal around the median ``nu``, so
+    conductance only decays).  ``t`` is the age in units of the
+    programming-reference time (``t = 1`` is fresh), where the factor is
+    exactly ``1.0 ** -nu_cell == 1.0``.
+    """
 
     kind: str = "none"          # none | power_law
-    nu: float = 0.0
-    sigma_nu: float = 0.0
-    t: float = 1.0
+    nu: float = 0.0             # median drift exponent
+    sigma_nu: float = 0.0       # lognormal spread of the per-cell exponent
+    t: float = 1.0              # evaluation age in t0 units (1.0 = fresh)
 
     def __post_init__(self):
-        _only_none("DriftModel", self.kind, ("none", "power_law"))
+        kinds = ("none", "power_law")
+        if self.kind not in kinds:
+            raise ValueError(
+                f"DriftModel.kind must be one of {kinds}, got {self.kind!r}")
+
+    def exponents(self, shape, generator: torch.Generator,
+                  dtype=torch.float32) -> torch.Tensor:
+        """Per-cell drift exponents (a fixed device property per seed),
+        on the generator's device."""
+        z = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=generator.device)
+        return z.mul_(self.sigma_nu).exp_().mul_(self.nu)   # one buffer
+
+    def factor(self, shape, t, generator: torch.Generator,
+               dtype=torch.float32) -> torch.Tensor:
+        """Per-cell decay factor ``t^-nu_cell``, the age clamped to >= 1
+        (a retention model, not one of the programming transient)."""
+        tc = torch.clamp(torch.as_tensor(t, dtype=dtype,
+                                         device=generator.device), min=1.0)
+        return torch.pow(tc, self.exponents(shape, generator, dtype).neg_())
+
+    def apply(self, g: torch.Tensor, t,
+              seed: Optional[int]) -> torch.Tensor:
+        """Decay programmed conductances from age 1 to age ``t``."""
+        if self.kind == "none" or seed is None:
+            return g
+        return self.factor(g.shape, t, generator(seed, g.device),
+                           g.dtype).mul_(g)
 
 
 @dataclasses.dataclass(frozen=True)
 class FaultModel:
-    """Stuck-at cell faults; only ``kind="none"`` is ported so far."""
+    """Stuck-at cell faults arriving as a seeded Poisson process.
+
+    A cell fails at ``rate`` per unit of age, so by age ``t`` it is stuck
+    with probability ``1 - exp(-rate * (t - 1))``; a stuck cell reads
+    ``g_hi`` with probability ``p_hi``, else ``g_lo``.  The arrival
+    threshold and the high/low choice are drawn once per cell from two
+    streams of the seed, whatever ``t``: the same seed and age give the
+    same mask, and the stuck set at ``t1`` is a subset of the stuck set at
+    any ``t2 > t1``.
+    """
 
     kind: str = "none"          # none | stuck
-    rate: float = 0.0
-    p_hi: float = 0.5
-    t: float = 1.0
+    rate: float = 0.0           # expected failures per cell per t0 of age
+    p_hi: float = 0.5           # fraction of stuck cells stuck at G_max
+    t: float = 1.0              # evaluation age in t0 units (1.0 = fresh)
 
     def __post_init__(self):
-        _only_none("FaultModel", self.kind, ("none", "stuck"))
+        kinds = ("none", "stuck")
+        if self.kind not in kinds:
+            raise ValueError(
+                f"FaultModel.kind must be one of {kinds}, got {self.kind!r}")
+        if not 0.0 <= self.p_hi <= 1.0:
+            raise ValueError(
+                f"FaultModel.p_hi must sit in [0, 1], got {self.p_hi}")
+
+    def stuck_prob(self, t, dtype=torch.float32,
+                   device="cpu") -> torch.Tensor:
+        """P(cell has failed by age ``t``) under Poisson arrivals."""
+        dt = torch.clamp(torch.as_tensor(t, dtype=dtype, device=device),
+                         min=1.0) - 1.0
+        return -torch.expm1(-self.rate * dt)
+
+    def apply(self, g: torch.Tensor, t, seed: Optional[int], *,
+              g_lo=0.0, g_hi=1.0) -> torch.Tensor:
+        """Pin failed cells to ``g_lo``/``g_hi`` (normalized G_min/G_max)."""
+        if self.kind == "none" or seed is None:
+            return g
+        u = torch.rand(g.shape, generator=generator(fold_seed(seed, 0),
+                                                    g.device),
+                       dtype=g.dtype, device=g.device)
+        stuck = u < self.stuck_prob(t, g.dtype, g.device)
+        hi = torch.rand(g.shape, generator=generator(fold_seed(seed, 1),
+                                                     g.device),
+                        dtype=g.dtype, device=g.device) < self.p_hi
+        like = dict(dtype=g.dtype, device=g.device)
+        val = torch.where(hi, torch.as_tensor(g_hi, **like),
+                          torch.as_tensor(g_lo, **like))
+        return torch.where(stuck, val, g)
 
 
 def state_independent(alpha: float) -> ErrorModel:
@@ -125,3 +195,13 @@ def sonos() -> ErrorModel:
 
 def none() -> ErrorModel:
     return ErrorModel(kind="none")
+
+
+def power_law_drift(nu: float, sigma_nu: float = 0.0,
+                    t: float = 1.0) -> DriftModel:
+    return DriftModel(kind="power_law", nu=nu, sigma_nu=sigma_nu, t=t)
+
+
+def stuck_faults(rate: float, p_hi: float = 0.5,
+                 t: float = 1.0) -> FaultModel:
+    return FaultModel(kind="stuck", rate=rate, p_hi=p_hi, t=t)

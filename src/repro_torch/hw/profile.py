@@ -9,9 +9,10 @@ hook names ``wq``/``wk``/``wv``/``wo``, ``w_gate``/``w_up``/``w_down``,
 may be restricted to a half-open layer band; :data:`DIGITAL` keeps a site
 off-array; the first matching rule wins.  :meth:`Profile.layer_bands`
 groups layers into maximal runs with a constant site->rule map, and the
-model loops over each band under its own specs.  The sweep-axis plumbing
-of the reference (``with_field``/``field``) waits for the sweep engine's
-port (ROADMAP queue A item 9).
+model loops over each band under its own specs.  :meth:`Profile.selectors`
+lists the analog rules (the healer checks each one's ages); the rest of
+the reference's sweep-axis plumbing (``with_field``/``field``) waits for
+the sweep engine's port (ROADMAP queue A item 9).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 import hashlib
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.analog import AnalogSpec
 
@@ -190,6 +191,15 @@ class Profile:
                 start, prev = layer, cur
         bands.append((start, n_layers))
         return tuple(bands)
+
+    def selectors(self) -> Iterator[Tuple[str, AnalogSpec]]:
+        """(selector, spec) for every analog rule, in rule order, then
+        ``("default", spec)`` if the default is analog."""
+        for rule in self.rules:
+            if isinstance(rule.spec, AnalogSpec):
+                yield rule.key, rule.spec
+        if isinstance(self.default, AnalogSpec):
+            yield "default", self.default
 
     # ---- identity --------------------------------------------------------
     def signature(self) -> str:

@@ -74,6 +74,15 @@ class AnalogPack:
                 return s
         raise KeyError(f"site {name!r} is not analog in any band of this pack")
 
+    def age(self, t, seed: int) -> "AnalogPack":
+        """Device state of this pack at age ``t`` (units of the
+        programming-reference time; ``t = 1`` is fresh) under each site's
+        drift and fault models; see
+        ``repro_torch.serve.analog_engine.age_pack``."""
+        from repro_torch.serve.analog_engine import age_pack
+
+        return age_pack(self, t, seed)
+
 
 # ---------------------------------------------------------------------------
 # init

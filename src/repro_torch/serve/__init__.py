@@ -1,10 +1,12 @@
 """Serve an LM through the analog pipeline (counterpart of
 ``repro.serve``): program + calibrate (``analog_engine``), one-shot
 batched decode (``decode_lm``), the continuous-batching runtime
-(``runtime``) and its paged-KV form with prefix sharing (``paged``, over
-``kvpool``)."""
+(``runtime``), its paged-KV form with prefix sharing (``paged``, over
+``kvpool``), and device-state management over time — drift, stuck-cell
+faults and self-healing (``health``, ``age_pack``)."""
 
 from repro_torch.serve.analog_engine import (
+    age_pack,
     analog_eval_metrics,
     calibrate_lm,
     decode_lm,
@@ -14,6 +16,7 @@ from repro_torch.serve.analog_engine import (
     program_lm,
     program_lm_from_codes,
 )
+from repro_torch.serve.health import DriftClock, HealPolicy, PackManager
 from repro_torch.serve.kvpool import PageAllocator, RadixCache
 from repro_torch.serve.paged import PagedServeRuntime
 from repro_torch.serve.runtime import (
@@ -26,6 +29,7 @@ from repro_torch.serve.runtime import (
 )
 
 __all__ = [
+    "age_pack",
     "analog_eval_metrics",
     "calibrate_lm",
     "decode_lm",
@@ -34,6 +38,9 @@ __all__ = [
     "lm_program_codes",
     "program_lm",
     "program_lm_from_codes",
+    "DriftClock",
+    "HealPolicy",
+    "PackManager",
     "PageAllocator",
     "PagedServeRuntime",
     "RadixCache",

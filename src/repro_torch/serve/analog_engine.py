@@ -18,15 +18,17 @@ conversion + noise).  ``program_lm`` runs both a layer at a time, so the
 integer codes of a full-width model never sit in memory at once.
 
 Every entry point takes one :class:`AnalogSpec` or a
-:class:`repro_torch.hw.Profile`.  Drift, stuck-cell faults and aging
-(``age_pack``) wait for ROADMAP queue A item 8.
+:class:`repro_torch.hw.Profile`.  ``age_pack`` derives a pack's device
+state at an age under each site's drift and stuck-cell fault models,
+seeded like programming; ``repro_torch.serve.health`` manages that state
+over a served pack's life.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -36,6 +38,7 @@ from repro_torch.core.analog import (
     AnalogSpec,
     AnalogWeights,
     ProgrammedMatrix,
+    age_conductances,
     analog_matmul,
     program_codes,
     program_from_codes,
@@ -166,6 +169,30 @@ def _head_weight(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+_LINES = ("g_pos", "g_neg", "g_unit")
+
+
+def _stack_layers(layers: Iterable[AnalogWeights],
+                  n_layers: int) -> AnalogWeights:
+    """``n_layers`` per-layer weights stacked over a new leading axis, each
+    written into its stack as it comes (one layer alive at a time)."""
+    stacks: Dict[str, Optional[torch.Tensor]] = {}
+    scales = []
+    for i, aw in enumerate(layers):
+        for field in _LINES:
+            t = getattr(aw, field)
+            if i == 0:
+                stacks[field] = None if t is None else torch.empty(
+                    (n_layers,) + tuple(t.shape), dtype=t.dtype,
+                    device=t.device)
+            if t is not None:
+                stacks[field][i] = t
+        scales.append(aw.w_scale)
+    return AnalogWeights(g_pos=stacks["g_pos"], g_neg=stacks["g_neg"],
+                         g_unit=stacks["g_unit"],
+                         w_scale=torch.stack(scales), k=aw.k, n=aw.n)
+
+
 def _program_site_stack(code_of_layer: Callable[[int], ProgrammedMatrix],
                         n_layers: int,
                         specs_per_band: List[Optional[AnalogSpec]],
@@ -179,23 +206,77 @@ def _program_site_stack(code_of_layer: Callable[[int], ProgrammedMatrix],
     layer_spec = []
     for (lo, hi), sp in zip(bands, specs_per_band):
         layer_spec.extend([sp if sp is not None else geom] * (hi - lo))
-    stacks: Dict[str, Optional[torch.Tensor]] = {}
-    scales = []
-    for i in range(n_layers):
-        aw = program_from_codes(code_of_layer(i), layer_spec[i],
-                                fold_seed(seed, i))
-        for field in ("g_pos", "g_neg", "g_unit"):
-            t = getattr(aw, field)
-            if i == 0:
-                stacks[field] = None if t is None else torch.empty(
-                    (n_layers,) + tuple(t.shape), dtype=t.dtype,
-                    device=t.device)
-            if t is not None:
-                stacks[field][i] = t
-        scales.append(aw.w_scale)
-    return AnalogWeights(g_pos=stacks["g_pos"], g_neg=stacks["g_neg"],
-                         g_unit=stacks["g_unit"],
-                         w_scale=torch.stack(scales), k=aw.k, n=aw.n)
+    return _stack_layers(
+        (program_from_codes(code_of_layer(i), layer_spec[i],
+                            fold_seed(seed, i)) for i in range(n_layers)),
+        n_layers)
+
+
+def _age_weights(aw: AnalogWeights, spec: AnalogSpec, t_drift, t_fault,
+                 seed: int) -> AnalogWeights:
+    """Drift + fault one programmed matrix to the given ages."""
+    g_pos, g_neg, g_unit = age_conductances(
+        aw.g_pos, aw.g_neg, aw.g_unit, spec, seed,
+        t_drift=t_drift, t_fault=t_fault)
+    return dataclasses.replace(aw, g_pos=g_pos, g_neg=g_neg, g_unit=g_unit)
+
+
+def _age_site_stack(aw: AnalogWeights,
+                    specs_per_band: List[Optional[AnalogSpec]],
+                    bands: Tuple[Tuple[int, int], ...],
+                    seed: int,
+                    t_drift_by_band: List[float],
+                    t_fault_by_band: List[float]) -> AnalogWeights:
+    """Age one site's layer stack, per band, on the programming seed
+    schedule (``fold_seed(site seed, absolute layer)``), so aging does not
+    depend on band structure and replays; layers of a band that does not
+    age are copied as they are."""
+    def layers():
+        for (lo, hi), sp, td, tf in zip(bands, specs_per_band,
+                                        t_drift_by_band, t_fault_by_band):
+            for i in range(lo, hi):
+                lay = aw.layer(i)
+                if sp is not None and sp.aging_on:
+                    lay = _age_weights(lay, sp, td, tf, fold_seed(seed, i))
+                yield lay
+
+    return _stack_layers(layers(), bands[-1][1])
+
+
+def age_pack(pack: AnalogPack, t, seed: int, *,
+             t_drift_by_band=None, t_fault_by_band=None) -> AnalogPack:
+    """Device state of ``pack`` at age ``t`` (t0 units; ``t = 1`` fresh).
+
+    Each site ages under its own band's drift and fault models; seeds fold
+    as programming seeds do, ``fold_seed(hook_key(seed, name), absolute
+    layer)``, so the same pack, ``t`` and seed give the same result.  With
+    every model off it returns ``pack`` itself; at ``t = 1`` a pack equal
+    to ``pack``, tensor for tensor.  ``t_drift_by_band`` /
+    ``t_fault_by_band`` replace the uniform ``t`` per band (the healer's
+    per-band reprogram ages); the head always ages at ``t``.
+    """
+    n_bands = len(pack.bands)
+    td = list(t_drift_by_band) if t_drift_by_band is not None \
+        else [t] * n_bands
+    tf = list(t_fault_by_band) if t_fault_by_band is not None \
+        else [t] * n_bands
+    changed = False
+    layer_weights = {}
+    for name, aw in pack.layer_weights.items():
+        specs = [ss.get(name) for ss in pack.band_specs]
+        if not any(s is not None and s.aging_on for s in specs):
+            layer_weights[name] = aw
+            continue
+        changed = True
+        layer_weights[name] = _age_site_stack(
+            aw, specs, pack.bands, hook_key(seed, name), td, tf)
+    head = pack.head
+    if head is not None and pack.head_spec.aging_on:
+        changed = True
+        head = _age_weights(head, pack.head_spec, t, t, hook_key(seed, HEAD))
+    if not changed:
+        return pack
+    return dataclasses.replace(pack, layer_weights=layer_weights, head=head)
 
 
 def pack_layout(profile: Profile, sites: List[str], n_layers: int):

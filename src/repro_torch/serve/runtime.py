@@ -26,8 +26,12 @@ device: streams are reproducible per key and differ from the reference's
 ``jax.random`` streams.
 
 ``gang=True`` degrades the scheduler to static batching (the baseline).
-Device-state management (``manager=``, ``clock=``, ``heal=``) waits for
-ROADMAP queue A item 8 and raises.
+With a ``manager`` (``repro_torch.serve.health.PackManager``) the runtime
+owns a pack's device state over time: under a ``clock`` the served pack
+ages as decode steps accumulate, and under a ``heal`` policy the runtime
+probes its own health and heals itself (band-by-band reprogramming and
+recalibration), swapping the new pack in between decode steps while
+in-flight requests keep serving.
 
 The paged runtime (``serve.paged.PagedServeRuntime``) overrides the
 reference's hooks: :meth:`ServeRuntime._init_layers` (the KV layout),
@@ -52,6 +56,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.layers import NEG_INF
 from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import AnalogPack
+from repro_torch.runtime.fault import resilient_step
+from repro_torch.serve.health import HEAD_BAND
 
 _MASK32 = 0xFFFFFFFF
 _MASK63 = 0x7FFFFFFFFFFFFFFF
@@ -182,7 +188,10 @@ class ServeRuntime:
     ``attn_backend``: ``"stream"`` (online-softmax attention),
     ``"flash"`` (the flash-decode CUDA kernel over the dense slot cache)
     or ``"flash_oracle"`` (its plain PyTorch version).  Prefill always
-    streams.  Other parameters are the reference's.
+    streams.  ``manager`` (a ``PackManager``, exclusive with ``pack``),
+    ``clock`` (a ``DriftClock``) and ``heal`` (a ``HealPolicy``) manage the
+    served pack's device state; ``clock`` and ``heal`` need ``manager``.
+    Other parameters are the reference's.
     """
 
     def __init__(
@@ -204,10 +213,6 @@ class ServeRuntime:
         clock=None,
         heal=None,
     ):
-        if manager is not None or clock is not None or heal is not None:
-            raise NotImplementedError(
-                "manager=/clock=/heal= (drift and healing) are not ported "
-                "yet (ROADMAP queue A item 8)")
         api = get_model(cfg)
         if attn_backend not in ("stream", "flash", "flash_oracle"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}")
@@ -215,6 +220,17 @@ class ServeRuntime:
             raise ValueError(
                 "the flash-decode kernel has no sliding-window mask; "
                 "serve windowed configs with attn_backend='stream'")
+        if manager is not None and pack is not None:
+            raise ValueError(
+                "pass either pack= (a static AnalogPack) or manager= (a "
+                "PackManager owning the pack's device state), not both")
+        if (clock is not None or heal is not None) and manager is None:
+            raise ValueError(
+                "clock=/heal= need a manager= (repro_torch.serve.health."
+                "PackManager) to derive aged packs and reprogram bands")
+        self._manager, self._clock, self._heal = manager, clock, heal
+        if manager is not None:
+            pack = manager.aged(clock.at(0) if clock is not None else 1.0)
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if buckets is None:
@@ -256,8 +272,12 @@ class ServeRuntime:
         self._slots: List[Optional[_Pending]] = [None] * b
         self._early: List[Completion] = []
         self._live_uids: set = set()
+        self._heal_queue: Deque[Any] = deque()
+        self._last_health = 0
         self._stats = {"decode_steps": 0, "prefill_calls": 0,
-                       "occupancy_sum": 0, "tokens_out": 0, "ttft_s": []}
+                       "occupancy_sum": 0, "tokens_out": 0, "ttft_s": [],
+                       "heal_events": 0, "bands_reprogrammed": 0,
+                       "recalibrations": 0, "probe_losses": []}
 
     def _init_layers(self):
         """The slot-batched cache tree this runtime decodes over (hook: the
@@ -268,9 +288,12 @@ class ServeRuntime:
     @property
     def stats(self) -> Dict[str, Any]:
         """``decode_steps``, ``prefill_calls``, mean ``occupancy``,
-        ``tokens_out`` and the per-request ``ttft_s`` list."""
+        ``tokens_out``, the per-request ``ttft_s`` list, and the healer's
+        ``heal_events``, ``bands_reprogrammed``, ``recalibrations`` and
+        ``probe_losses``."""
         s = dict(self._stats)
         s["ttft_s"] = list(s["ttft_s"])
+        s["probe_losses"] = list(s["probe_losses"])
         steps = max(s["decode_steps"], 1)
         s["occupancy"] = s.pop("occupancy_sum") / (steps * self.max_slots)
         return s
@@ -317,12 +340,15 @@ class ServeRuntime:
         while not self.idle:
             for c in self.step():
                 done[c.uid] = c.tokens
+        while self._heal_queue:      # finish healing that started late
+            self._maintain()
         return done
 
     # -- scheduler ---------------------------------------------------------
 
     def step(self) -> List[Completion]:
-        """One scheduler iteration: admit -> decode -> collect."""
+        """One scheduler iteration: maintain -> admit -> decode -> collect."""
+        self._maintain()
         self._admit()
         early, self._early = self._early, []
         t = self._stats["decode_steps"]
@@ -332,6 +358,58 @@ class ServeRuntime:
             self._stats["decode_steps"] += 1
             self._stats["occupancy_sum"] += live
         return early + self._collect()
+
+    def _maintain(self) -> None:
+        """Device-state upkeep between decode steps (nothing without a
+        manager).  Drains the heal queue ``bands_per_step`` targets a call
+        through ``resilient_step``, recalibrating once it is empty;
+        otherwise every ``check_every`` steps (``update_every`` without a
+        policy) re-ages the served pack and, under a policy, probes its
+        health and queues a heal when the probe loss passes the
+        threshold.  Slot state is untouched: the next decode step simply
+        reads the new pack."""
+        m = self._manager
+        if m is None:
+            return
+        hp = self._heal
+        steps = self._stats["decode_steps"]
+        t = self._clock.at(steps) if self._clock is not None else 1.0
+        if self._heal_queue:
+            for _ in range(min(hp.bands_per_step, len(self._heal_queue))):
+                target = self._heal_queue.popleft()
+                if target == HEAD_BAND:
+                    resilient_step(m.reprogram_head, t_now=t,
+                                   max_retries=hp.max_retries,
+                                   backoff_s=hp.backoff_s)
+                else:
+                    resilient_step(m.reprogram_band, target, t_now=t,
+                                   max_retries=hp.max_retries,
+                                   backoff_s=hp.backoff_s)
+                self._stats["bands_reprogrammed"] += 1
+            self.pack = m.aged(t)
+            if not self._heal_queue and hp.recalibrate:
+                self.pack = m.recalibrate(self.pack)
+                self._stats["recalibrations"] += 1
+            return
+        every = (hp.check_every if hp is not None
+                 else (self._clock.update_every
+                       if self._clock is not None else 0))
+        if not every or (steps - self._last_health) < every:
+            return
+        self._last_health = steps
+        if self._clock is not None:
+            self.pack = m.aged(t)
+        if hp is None:
+            return
+        loss = m.probe_loss(self.pack)
+        self._stats["probe_losses"].append(loss)
+        if loss > m.ref_loss * hp.loss_mult + hp.loss_add:
+            self._stats["heal_events"] += 1
+            if hp.reprogram:
+                self._heal_queue.extend(m.heal_targets())
+            elif hp.recalibrate:
+                self.pack = m.recalibrate(self.pack)
+                self._stats["recalibrations"] += 1
 
     def _admit(self) -> None:
         """Admit queued requests until slots or queue run dry; lanes that

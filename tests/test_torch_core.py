@@ -209,19 +209,35 @@ def test_programming_noise_statistics():
 
 
 def test_unported_paths_raise():
-    """Drift and stuck-cell faults are still unported and raise.  Parasitic
-    bit-line resistance and the legacy ``use_pallas`` route are ported:
-    they return finite results of the right shape, the parasitic one away
-    from the ideal chain's (voltage sag moves the outputs), the legacy one
-    equal to the composed chain's (tests/test_torch_parasitics.py holds
-    both against the reference)."""
+    """The paths once unported now run.  Drift and stuck-cell faults build
+    and age a programmed matrix: values equal at the fresh age, decayed or
+    stuck at an older one (tests/test_torch_drift.py holds their
+    statistics against the reference).  Parasitic bit-line resistance and
+    the legacy ``use_pallas`` route return finite results of the right
+    shape, the parasitic one away from the ideal chain's (voltage sag moves
+    the outputs), the legacy one equal to the composed chain's
+    (tests/test_torch_parasitics.py holds both against the reference)."""
     from repro_torch.core import calibrate as t_cal
 
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        TE.DriftModel(kind="power_law", nu=0.05)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        TE.FaultModel(kind="stuck", rate=0.1)
+    drift = TE.DriftModel(kind="power_law", nu=0.05)
+    fault = TE.FaultModel(kind="stuck", rate=0.1)
     w = torch.as_tensor(_weights())
+    for model in (drift, fault):
+        spec = TA.design_a(**{"drift" if model is drift else "fault": model})
+        assert spec.aging_on
+        fresh = TA.program(w, spec, seed=3)
+        old = dataclasses.replace(spec, **{
+            "drift" if model is drift else "fault":
+                dataclasses.replace(model, t=64.0)})
+        aged = TA.program(w, old, seed=3)
+        assert torch.equal(TA.program(w, TA.design_a(), seed=3).g_pos,
+                           fresh.g_pos)
+        assert aged.g_pos.shape == fresh.g_pos.shape
+        assert not torch.equal(aged.g_pos, fresh.g_pos)
+    with pytest.raises(ValueError, match="DriftModel.kind"):
+        TE.DriftModel(kind="linear")
+    with pytest.raises(ValueError, match="FaultModel.kind"):
+        TE.FaultModel(kind="open")
     x = torch.as_tensor(_acts())
     ideal = TA.design_a()
     aw = TA.program(w, ideal)

@@ -33,6 +33,14 @@ The grids (``tolerance.*_GRID``) are those of ``tests/test_kernels.py``,
 shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_parasitics.py``, ``tests/test_torch_paged.py`` and
 ``chip_smoke.py``.
+
+Drift, stuck-cell faults and healing on the card: at one full-width site
+the fresh age leaves every conductance equal, the drift exponents taken
+back out of the aged conductances and the stuck share follow their
+formulas within 5 sigma of their draws, and a seed replays; forced healing
+with aging that changes no value leaves the dense (flash kernel) and paged
+(paged-attention kernel) runtimes' tokens as they were; and
+``resilient_step`` re-raises a failed launch at once, with no retry.
 """
 
 import numpy as np
@@ -768,3 +776,145 @@ def test_attention_kernel_graph_capture_equals_eager(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(eager, outs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# drift, stuck-cell faults and healing on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_aging_at_a_full_width_site(cuda_device):
+    """w_gate of qwen1.5-4b (2560 x 6912, Design A, 3 partitions of 854
+    rows): a spec with drift and faults at t = 1 programs the conductances
+    of the spec without them; at t = 64 the per-cell drift exponents taken
+    back out of ``g_t / g`` have a log-mean within 5 sigma of log(0.2) and
+    a spread within 0.005 of sigma_nu 0.3, the stuck share is within 5
+    sigma of ``1 - exp(-rate (t - 1))`` with stuck cells at g_min or 1.0
+    only, and the same seed replays."""
+    import dataclasses
+
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn((2560, 6912), generator=gen, device=cuda_device) * 0.02
+    base = A.design_a(error=E.state_proportional(0.05))
+    aging = dataclasses.replace(base, drift=E.power_law_drift(0.2, 0.3),
+                                fault=E.stuck_faults(1e-2))
+    fresh = A.program(w, base, seed=3)
+    assert torch.equal(A.program(w, aging, seed=3).g_pos, fresh.g_pos)
+    assert torch.equal(A.program(w, aging, seed=3).g_neg, fresh.g_neg)
+    g = fresh.g_pos
+    n = g.numel()
+    drift = E.power_law_drift(0.2, sigma_nu=0.3)
+    g_t = drift.apply(g, 64.0, seed=9)
+    assert torch.equal(drift.apply(g, 1.0, seed=9), g)
+    assert torch.equal(drift.apply(g, 64.0, seed=9), g_t)
+    pos = g > 0
+    log_nu = torch.log(-torch.log(g_t[pos].double() / g[pos].double())
+                       / np.log(64.0))
+    assert abs(float(log_nu.mean()) - np.log(0.2)) < 5 * 0.3 / np.sqrt(n)
+    assert abs(float(log_nu.std()) - 0.3) < 0.005
+    assert bool((g_t[pos] <= g[pos]).all())
+    fault = E.stuck_faults(1e-2)
+    g_lo = base.mapping.g_min
+    g_f = fault.apply(g, 64.0, seed=9, g_lo=g_lo)
+    assert torch.equal(fault.apply(g, 64.0, seed=9, g_lo=g_lo), g_f)
+    assert torch.equal(fault.apply(g, 1.0, seed=9, g_lo=g_lo), g)
+    stuck = g_f != g
+    p = 1.0 - np.exp(-1e-2 * 63.0)
+    assert abs(float(stuck.double().mean()) - p) < 5 * np.sqrt(
+        p * (1 - p) / n)
+    vals = g_f[stuck]
+    assert bool(((vals == 1.0) | (vals == g_lo)).all())
+
+
+def _smoke_serving(dev):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config("qwen1.5-4b")
+    params = T.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(1)
+    calib = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 16)), device=dev)
+    reqs = [(rng.integers(0, cfg.vocab, size=n).astype(np.int32), m)
+            for n, m in ((5, 6), (9, 4), (3, 7), (7, 5))]
+    return cfg, params, calib, reqs
+
+
+@pytest.mark.cuda
+def test_forced_heal_changes_no_token_on_the_card(cuda_device):
+    """A manager whose aging changes no value (nu = 0, no programming
+    error), healed at every step: the dense runtime on the flash-decode
+    kernel and the paged runtime on the paged-attention kernel both serve
+    the unhealed dense run's tokens, with heal events, reprogrammed bands
+    and recalibrations."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.serve import (HealPolicy, PackManager,
+                                   PagedServeRuntime, ServeRuntime)
+
+    cfg, params, calib, reqs = _smoke_serving(cuda_device)
+    m = PackManager(cfg, params, A.design_a(
+        error=E.none(), drift=E.power_law_drift(0.0), fused="kernel"), 5,
+        calib_tokens=calib)
+    force = HealPolicy(check_every=1, loss_mult=0.0, loss_add=-1.0,
+                       bands_per_step=1)
+
+    def serve(rt):
+        uids = [rt.submit(p, max_new_tokens=n) for p, n in reqs]
+        outs = rt.run()
+        return [outs[u] for u in uids]
+
+    plain = serve(ServeRuntime(cfg, params, manager=m, attn_backend="flash",
+                               max_slots=2, max_len=16))
+    t_fused.reset_launch_counts()
+    for rt in (ServeRuntime(cfg, params, manager=m, attn_backend="flash",
+                            max_slots=2, max_len=16, heal=force),
+               PagedServeRuntime(cfg, params, manager=m, backend="kernel",
+                                 max_slots=2, max_len=16, page_size=4,
+                                 heal=force)):
+        for a, b in zip(serve(rt), plain):
+            np.testing.assert_array_equal(a, b)
+        s = rt.stats
+        assert s["heal_events"] >= 1 and s["bands_reprogrammed"] >= 2
+        assert s["recalibrations"] >= 1
+    assert t_fused.LAUNCHES["flash_decode"] > 0
+    assert t_fused.LAUNCHES["paged_attention"] > 0
+    assert t_fused.LAUNCHES["fused_mvm"] > 0
+
+
+@pytest.mark.cuda
+def test_resilient_step_never_retries_a_failed_launch(cuda_device):
+    """The fused MVM kernel over 65536 x 64 columns: its grid's second
+    dimension (a block per 64 columns) passes CUDA's 65535, the launch
+    fails, and ``resilient_step`` re-raises the wrapper's RuntimeError at
+    once, with no retry.  The error is a launch error, not sticky: the
+    same op at a legal width runs after it."""
+    from repro_torch.runtime.fault import resilient_step
+
+    n = 65536 * 64
+    x = torch.ones((1, 1, 1), device=cuda_device)
+    gp = torch.full((1, 1, 1, n), 0.5, device=cuda_device)
+    gm = torch.zeros_like(gp)
+    kw = dict(adc_lo=torch.tensor([-1.0], device=cuda_device),
+              adc_hi=torch.tensor([1.0], device=cuda_device), adc_bits=8,
+              cell_bits=8, n_bits=None,
+              scale=torch.tensor(1.0, device=cuda_device))
+    calls = []
+
+    def launch():
+        calls.append("call")
+        y = t_ops.fused_mvm(x, gp, gm, backend="kernel", **kw)
+        torch.cuda.synchronize()
+        return y
+
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        resilient_step(launch, max_retries=3, backoff_s=0.001,
+                       on_retry=lambda *a: calls.append("retry"))
+    assert calls == ["call"]
+    y = t_ops.fused_mvm(x, gp[..., :128].contiguous(),
+                        gm[..., :128].contiguous(), backend="kernel", **kw)
+    torch.cuda.synchronize()
+    assert y.shape == (1, 128) and bool(torch.isfinite(y).all())

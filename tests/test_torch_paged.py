@@ -620,9 +620,12 @@ def test_paged_validation_errors(lm):
     rt = PagedServeRuntime(cfg, params, max_len=16, page_size=4)
     with pytest.raises(ValueError, match="max_new_tokens"):
         rt.submit(np.arange(4, dtype=np.int32) % cfg.vocab, max_new_tokens=0)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(ValueError, match="not both"):
         PagedServeRuntime(cfg, params, max_len=16, page_size=4,
-                          manager=object())
+                          pack=object(), manager=object())
+    with pytest.raises(ValueError, match="need a manager"):
+        PagedServeRuntime(cfg, params, max_len=16, page_size=4,
+                          clock=object())
 
 
 def test_kernel_backend_on_cpu_runs_the_plain_version(lm, ref_pack):

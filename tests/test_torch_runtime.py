@@ -144,9 +144,18 @@ def test_eos_stops_a_request(lm):
 
 
 def test_unported_runtime_options_raise(lm):
-    cfg, params, _ = lm
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ServeRuntime(cfg, params, manager=object())
+    """The device-state options are ported: they raise the reference's
+    ``ValueError``s on a static pack together with a manager, and on a
+    clock or heal policy without one."""
+    from repro_torch.serve import DriftClock, HealPolicy
+
+    cfg, params, pack = lm
+    with pytest.raises(ValueError, match="not both"):
+        ServeRuntime(cfg, params, pack=pack, manager=object())
+    with pytest.raises(ValueError, match="need a manager"):
+        ServeRuntime(cfg, params, clock=DriftClock(dt_per_step=1.0))
+    with pytest.raises(ValueError, match="need a manager"):
+        ServeRuntime(cfg, params, heal=HealPolicy())
     with pytest.raises(ValueError, match="attn_backend"):
         ServeRuntime(cfg, params, attn_backend="paged")
 
