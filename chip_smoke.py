@@ -90,7 +90,22 @@ lines:
    plain version at the health probe's 124 rows.  Printed only: the
    healing trace heal-off and heal-on, the seconds spent aging,
    reprogramming, recalibrating and probing, the decode step on the healed
-   pack and the peak device memory.
+   pack and the peak device memory;
+9. path SW — the design-space sweep engine (``repro_torch.sweep``) on the
+   main path's params and calibration tokens, with 4 x 32 eval tokens
+   from the same generator and their first 8 tokens as prompts:
+   ``run_sweep`` through one ``ServeEvaluator`` over G1 (lm_accuracy's
+   scheme axis x alpha {0.02, 0.05}, Design A with ``fused="kernel"``, the
+   fused MVM kernel on its differential points) and G2 (lm_parasitics'
+   ``r_hat`` axis {1e-4, 1e-3} on the ``use_pallas`` route: the bit-line
+   kernel in calibration, the legacy parasitic kernel in serving), one
+   trial each.  Gates: every point equals ``serve_serial_reference``; G1
+   rerun from its cache comes back all cached and equal, and G2 is one
+   compile group; a G1 point with the fused MVM kernel swapped for its
+   plain version gives equal metrics; the three kernels launch.  Printed:
+   each point's metrics and seconds by phase, the digital loss, SW's
+   seconds and peak device memory.  SW's launches are added to those
+   three kernels' entries of the kernel list.
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON (the
@@ -1755,6 +1770,217 @@ def path_pd(torch, cfg, params, reqs, calib, kern_fused):
                     "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# path SW: the design-space sweep engine
+# ---------------------------------------------------------------------------
+
+
+SW_SEED = 1234        # the sweeps' trial seed (lm_accuracy's)
+SW_DECODE_NEW = 8     # decode_match's greedy tokens per prompt
+
+
+def sw_grids(A, E, S):
+    """Path SW's two grids, one trial each: G1, lm_accuracy's scheme axis
+    (proportional = differential + analog accumulation, offset = offset +
+    digital) x alpha {0.02, 0.05} on Design A's 8-bit calibrated ADC and
+    on/off 1e4 with ``fused="kernel"`` (4 points, 2 groups); G2,
+    lm_parasitics' ``r_hat`` axis {1e-4, 1e-3} on the ``use_pallas`` route
+    at alpha 0.02, ``test_n`` 4 (2 points, 1 group)."""
+    base = A.design_a(error=E.state_proportional(0.0), fused="kernel")
+    scheme = S.Axis(("mapping.scheme", "input_accum"),
+                    (("differential", "analog"), ("offset", "digital")),
+                    labels=("proportional", "offset"))
+    g1 = S.SweepSpec(
+        name="sw_lm_accuracy", base=base,
+        axes=(scheme, S.Axis("error.alpha", (0.02, 0.05),
+                             labels=("a0.02", "a0.05"))),
+        trials=1, seed=SW_SEED)
+    r_hats = (1e-4, 1e-3)
+    g2 = S.SweepSpec(
+        name="sw_lm_parasitics",
+        base=dataclasses.replace(base, use_pallas=True, fused="off",
+                                 error=E.state_proportional(0.02)),
+        axes=(S.Axis("r_hat", r_hats,
+                     labels=tuple(f"r{r:g}" for r in r_hats)),),
+        trials=1, seed=SW_SEED, test_n=4)
+    return g1, g2
+
+
+@contextlib.contextmanager
+def sw_phase_timer(torch, serve_eval, tag_of: dict, secs: dict):
+    """Inside the block, ``serve_eval``'s programming, calibration, eval
+    and decode calls add their synchronized seconds to
+    ``secs[(point tag, phase)]``; the codes cache to ``secs[("codes",
+    mapping)]``.  A point is known from the spec it is programmed with."""
+    current = {}
+
+    def timed(fn, phase):
+        def call(*a, **kw):
+            if phase == "program":
+                current["tag"] = tag_of[a[2]]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            key = (current.get("tag"), phase) if phase != "codes" \
+                else ("codes", a[2].mapping.scheme)
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    with swapped(serve_eval, **{
+            name: timed(getattr(serve_eval, name), phase)
+            for name, phase in (("lm_program_codes", "codes"),
+                                ("program_lm_from_codes", "program"),
+                                ("calibrate_lm", "calibrate"),
+                                ("analog_eval_metrics", "eval"),
+                                ("decode_lm", "decode"))}):
+        yield
+
+
+def path_sw(torch, ops, cfg, params, calib, kern_fused):
+    """Path SW: the sweep engine (``repro_torch.sweep``) at full width on
+    the main path's params and calibration tokens, eval tokens 4 x 32 more
+    from the calibration's generator (targets shifted by one), prompts
+    their first 8 tokens, 8 greedy tokens each.  ``run_sweep`` drives G1
+    (B1 in eval and decode on the differential points) and G2 (B5 in
+    calibration, B6 in eval and decode) through one ``ServeEvaluator``;
+    the launch counts are read from those two runs.  Gates, each raising
+    on failure:
+    SW1. every point's loss, top1 and decode_match equal
+         ``serve_serial_reference``'s on the same spec and seed;
+    SW2. G1 again with the same cache directory comes back all cached
+         with equal values, and ``compile_groups`` gives G2 one group;
+    SW3. G1's proportional_a0.05 point with ``ops.fused_mvm`` swapped for
+         its plain version gives equal metrics and launches no B1;
+    SW4. B1, B5 and B6 launched in the executor's runs.
+    Printed: each point's metrics and seconds by phase, the digital loss,
+    the claim proportional < offset at a0.05, seconds and peak memory.
+    Returns (the executor runs' launch counts, SW's numbers)."""
+    import tempfile
+
+    from repro_torch import sweep as S
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.serve import analog_eval_metrics
+    from repro_torch.sweep import serve_eval
+
+    t_sw = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    if not torch.equal(torch.randint(0, cfg.vocab, calib.shape,
+                                     generator=gen, device=DEVICE), calib):
+        raise AssertionError("path SW: the calibration tokens' generator "
+                             "does not replay")
+    tokens = torch.randint(0, cfg.vocab, (4, 32), generator=gen,
+                           device=DEVICE)
+    targets = torch.roll(tokens, -1, dims=1)
+    prompts = tokens[:, :8]
+    digital = float(analog_eval_metrics(cfg, params, None, tokens,
+                                        targets)["loss"])
+    ev = S.ServeEvaluator(cfg, params, calib, tokens, targets,
+                          prompts=prompts, decode_new=SW_DECODE_NEW)
+    g1, g2 = sw_grids(A, E, S)
+    tag_of = {p.spec: p.tag for g in (g1, g2) for p in g.expand()}
+    secs: dict = {}
+    with tempfile.TemporaryDirectory() as cache_dir:
+        kern_fused.reset_launch_counts()
+        with sw_phase_timer(torch, serve_eval, tag_of, secs):
+            res = {g.name: S.run_sweep(g, ev, cache_dir=cache_dir)
+                   for g in (g1, g2)}
+        torch.cuda.synchronize()
+        counts = dict(kern_fused.LAUNCHES)
+        run_s = time.perf_counter() - t_sw
+
+        # SW1: the executor equals the serial loop
+        for g in (g1, g2):
+            n = g.test_n
+            for pt in g.expand():
+                ref = S.serve_serial_reference(
+                    cfg, params, pt.spec, calib, tokens[:n], targets[:n],
+                    prompts=prompts, decode_new=SW_DECODE_NEW,
+                    trials=g.trials, seed=g.seed)
+                if res[g.name][pt.tag].values != ref:
+                    raise AssertionError(
+                        f"path SW1: {g.name} {pt.tag}: run_sweep "
+                        f"{res[g.name][pt.tag].values} != "
+                        f"serve_serial_reference {ref}")
+        print(f"path SW1: run_sweep == serve_serial_reference on all "
+              f"{len(g1.expand()) + len(g2.expand())} points (loss, top1, "
+              f"decode_match equal)", flush=True)
+
+        # SW2: cache resume; G2 is one compile group
+        again = S.run_sweep(g1, ev, cache_dir=cache_dir)
+        if again.n_cached != len(again) or any(
+                r.values != res[g1.name][r.tag].values for r in again):
+            raise AssertionError(f"path SW2: {again.n_cached}/{len(again)} "
+                                 f"points cached, or values differ")
+        pts2 = g2.expand()
+        groups2 = S.compile_groups([(str(p.index), p) for p in pts2], ev,
+                                   all_points=pts2)
+        if len(groups2) != 1:
+            raise AssertionError(f"path SW2: G2 in {len(groups2)} groups")
+    print(f"path SW2: G1 again from its cache: {again.n_cached}/{len(again)}"
+          f" points cached, values equal; G2 one compile group "
+          f"(dynamic {groups2[0][1]})", flush=True)
+
+    # SW3: the kernel route equals the plain route
+    tag = "proportional_a0.05"
+    one = S.SweepSpec.from_points(
+        "sw_plain", [(tag, next(p.spec for p in g1.expand()
+                                if p.tag == tag))],
+        trials=g1.trials, seed=g1.seed)
+    fused_mvm = ops.fused_mvm
+
+    def on_plain(*a, **kw):
+        return fused_mvm(*a, **dict(kw, backend="oracle"))
+
+    before = kern_fused.LAUNCHES["fused_mvm"]
+    with swapped(ops, fused_mvm=on_plain):
+        plain = S.run_sweep(one, ev)
+    if kern_fused.LAUNCHES["fused_mvm"] != before:
+        raise AssertionError("path SW3: the plain route launched B1")
+    if plain[tag].values != res[g1.name][tag].values:
+        raise AssertionError(f"path SW3: {tag} on B1's plain version "
+                             f"{plain[tag].values} != on B1 "
+                             f"{res[g1.name][tag].values}")
+    print(f"path SW3: {tag} with ops.fused_mvm on its plain version: "
+          f"{plain[tag].values[0]} == the kernel route's", flush=True)
+
+    # SW4: the kernels ran
+    sw_launch = {k: counts[k] for k in ("fused_mvm", "bitline_mvm",
+                                        "analog_bitline_diff")}
+    if not all(sw_launch.values()):
+        raise AssertionError(f"path SW4: a kernel of SW never ran: {counts}")
+    print(f"path SW4: launches in the executor's runs {counts}", flush=True)
+    del ev
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_sw
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for g in (g1, g2):
+        for r in res[g.name]:
+            v = r.values[0]
+            split = ", ".join(f"{ph} {secs.get((r.tag, ph), 0.0):.3f}"
+                              for ph in ("program", "calibrate", "eval",
+                                         "decode"))
+            print(f"path SW {g.name} {r.tag}: loss {v['loss']:.4f} top1 "
+                  f"{v['top1']:.4f} decode_match {v['decode_match']:.4f}; "
+                  f"wall_s {r.wall_s:.3f} ({split})", flush=True)
+    codes = {k[1]: v for k, v in secs.items() if k[0] == "codes"}
+    prop = res[g1.name]["proportional_a0.05"].metric_mean("loss")
+    off = res[g1.name]["offset_a0.05"].metric_mean("loss")
+    print(f"path SW: digital loss {digital:.4f}; proportional < offset at "
+          f"a0.05: {prop < off} ({prop:.4f} vs {off:.4f}; random weights, "
+          f"printed only); codes cache built in "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in codes.items())
+          + f"; the executor's runs {run_s:.1f} s; path SW in {wall:.1f} s; "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    return sw_launch, {"wall_s": wall, "run_s": run_s, "peak_gib": peak,
+                       "secs": secs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -1858,10 +2084,16 @@ def main() -> int:
           f"{pd_counts['flash_decode']} paged_attention="
           f"{pd_counts['paged_attention']}", flush=True)
 
+    t = time.perf_counter()
+    sw_counts, sw = path_sw(torch, ops, cfg, params, calib, kern_fused)
+    print(f"path SW in {time.perf_counter() - t:.1f} s; launches "
+          f"{sw_counts}", flush=True)
+
     kernels = [
         {"name": "fused_mvm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_mvm.cu",
-         "replaces": FUSED_REPLACES, "launches": counts["fused_mvm"],
+         "replaces": FUSED_REPLACES,
+         "launches": counts["fused_mvm"] + sw_counts["fused_mvm"],
          "max_abs_err": max(fm["max_abs_err"], grid["max_abs_err"]),
          "ms": fm["ms"], "plain_ms": fm["plain_ms"],
          "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
@@ -1886,10 +2118,10 @@ def main() -> int:
             ("fused_mvm_parasitic", "fused_mvm_parasitic.cu",
              PARASITIC_REPLACES, p1_counts["fused_mvm_parasitic"]),
             ("bitline_mvm", "bitline.cu", BITLINE_REPLACES,
-             p2_counts["bitline_mvm"]),
+             p2_counts["bitline_mvm"] + sw_counts["bitline_mvm"]),
             ("analog_bitline_diff", "fused_mvm_parasitic.cu",
-             BL_DIFF_REPLACES,
-             p2_counts["analog_bitline_diff"]),
+             BL_DIFF_REPLACES, p2_counts["analog_bitline_diff"]
+             + sw_counts["analog_bitline_diff"]),
             ("analog_mvm_diff", "fused_mvm.cu", MVM_DIFF_REPLACES,
              p2_ideal["analog_mvm_diff"])):
         t = par[name]

@@ -103,6 +103,11 @@ class AnalogSpec:
         bin_eff = self.input_bits if self.input_accum == "analog" else 1
         return adc_lib.fpg_bits(bw, bin_eff, self.rows_per_partition(k))
 
+    def adc_conversions_per_mvm(self, k: int, n: int) -> int:
+        """ADC quantizations for one full-precision MVM (Sec. 2.2/9)."""
+        per_bit = 1 if self.input_accum == "analog" else self.n_planes
+        return self.n_partitions(k) * self.mapping.n_slices * per_bit * n
+
 
 def design_a(error: Optional[ErrorModel] = None, **kw) -> AnalogSpec:
     """Paper Design A — the recommended configuration (Table 3)."""

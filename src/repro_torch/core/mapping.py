@@ -107,6 +107,16 @@ def slice_codes(codes: torch.Tensor, bits_per_cell: int,
     return torch.stack(out, dim=0)
 
 
+def unslice_codes(slices: torch.Tensor, bits_per_cell: int) -> torch.Tensor:
+    """Inverse of :func:`slice_codes`: the shift-and-add reduction
+    ``sum_s 2**(bpc*s) * slices[s]``, slices ascending (every weight a
+    power of two, so each product is exact)."""
+    out = slices[0]
+    for s in range(1, slices.shape[0]):
+        out = out + slices[s] * (2 ** (bits_per_cell * s))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # code -> conductance
 # ---------------------------------------------------------------------------
@@ -118,6 +128,14 @@ def codes_to_conductance(codes: torch.Tensor, cfg: MappingConfig) -> torch.Tenso
     lmax = cfg.levels_per_cell - 1
     return cfg.g_min + true_div((1.0 - cfg.g_min) * codes.to(torch.float32),
                                 lmax)
+
+
+def conductance_to_codes(g: torch.Tensor, cfg: MappingConfig) -> torch.Tensor:
+    """Exact affine inverse of :func:`codes_to_conductance` (the digital
+    periphery knows the programmed transfer curve), in the reference's
+    order: ``(g - g_min) * (L - 1) / (1 - g_min)``."""
+    lmax = cfg.levels_per_cell - 1
+    return true_div((g - cfg.g_min) * lmax, 1.0 - cfg.g_min)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,3 +192,32 @@ def codes_to_weights(pc: ProgrammedCodes, cfg: MappingConfig) -> ProgrammedWeigh
         return None if c is None else codes_to_conductance(c, cfg)
     return ProgrammedWeights(g_pos=conv(pc.c_pos), g_neg=conv(pc.c_neg),
                              g_unit=conv(pc.c_unit))
+
+
+def program_weights(w_int: torch.Tensor, cfg: MappingConfig) -> ProgrammedWeights:
+    """Map signed integer weights (int32) to conductance stacks
+    (error-free)."""
+    return codes_to_weights(program_int_codes(w_int, cfg), cfg)
+
+
+def reconstruct_weights(pw: ProgrammedWeights,
+                        cfg: MappingConfig) -> torch.Tensor:
+    """Recover signed integer weights from (possibly perturbed)
+    conductances: the ideal decoder the digital periphery implements."""
+    cp = conductance_to_codes(pw.g_pos, cfg)
+    if cfg.scheme == "offset":
+        codes = unslice_codes(cp, cfg.cell_bits) if cfg.sliced else cp[0]
+        return codes - cfg.offset_code
+    cn = conductance_to_codes(pw.g_neg, cfg)
+    if cfg.sliced:
+        return (unslice_codes(cp, cfg.cell_bits)
+                - unslice_codes(cn, cfg.cell_bits))
+    return cp[0] - cn[0]
+
+
+def average_conductance(pw: ProgrammedWeights) -> torch.Tensor:
+    """Per-slice mean normalized conductance (paper Fig. 6), summed in
+    float64 and rounded once to the conductances' dtype."""
+    gs = [pw.g_pos] + ([pw.g_neg] if pw.g_neg is not None else [])
+    stacked = torch.cat([g.reshape(g.shape[0], -1) for g in gs], dim=-1)
+    return stacked.double().mean(dim=-1).to(stacked.dtype)

@@ -10,9 +10,10 @@ may be restricted to a half-open layer band; :data:`DIGITAL` keeps a site
 off-array; the first matching rule wins.  :meth:`Profile.layer_bands`
 groups layers into maximal runs with a constant site->rule map, and the
 model loops over each band under its own specs.  :meth:`Profile.selectors`
-lists the analog rules (the healer checks each one's ages); the rest of
-the reference's sweep-axis plumbing (``with_field``/``field``) waits for
-the sweep engine's port (ROADMAP queue A item 9).
+lists the analog rules (the healer checks each one's ages), and
+:meth:`Profile.with_field`/:meth:`Profile.field` set and read a field of
+the specs a selector targets (the sweep engine's ``"attn:adc.bits"`` axis
+paths, ``repro_torch.sweep.spec.set_field``).
 """
 
 from __future__ import annotations
@@ -200,6 +201,58 @@ class Profile:
                 yield rule.key, rule.spec
         if isinstance(self.default, AnalogSpec):
             yield "default", self.default
+
+    def _targets(self, selector: str) -> List[int]:
+        return [i for i, r in enumerate(self.rules) if r.key == selector]
+
+    def with_field(self, selector: str, path: str, value) -> "Profile":
+        """Functionally set ``path`` on every spec the selector targets.
+
+        ``selector`` is a rule key (``Rule.key``) or ``"default"``; the
+        sweep layer spells this ``"<selector>:<field.path>"`` in axis
+        paths (see ``repro_torch.sweep.spec.set_field``).
+        """
+        from repro_torch.sweep.spec import set_field as _set
+
+        if selector == "default":
+            if not isinstance(self.default, AnalogSpec):
+                raise ValueError(
+                    f"profile default is {DIGITAL!r}; cannot set "
+                    f"{path!r} on it")
+            return dataclasses.replace(
+                self, default=_set(self.default, path, value))
+        idx = self._targets(selector)
+        if not idx:
+            raise ValueError(
+                f"no profile rule answers to selector {selector!r}; "
+                f"known selectors: {[r.key for r in self.rules] + ['default']}")
+        rules = list(self.rules)
+        for i in idx:
+            if not isinstance(rules[i].spec, AnalogSpec):
+                raise ValueError(
+                    f"rule {rules[i].pattern!r} (selector {selector!r}) is "
+                    f"{DIGITAL!r}; cannot set {path!r} on it")
+            rules[i] = dataclasses.replace(
+                rules[i], spec=_set(rules[i].spec, path, value))
+        return dataclasses.replace(self, rules=tuple(rules))
+
+    def field(self, selector: str, path: str):
+        """Read ``path`` from the selector's spec (first target wins)."""
+        from repro_torch.sweep.spec import get_field as _get
+
+        if selector == "default":
+            spec = self.default
+        else:
+            idx = self._targets(selector)
+            if not idx:
+                raise ValueError(
+                    f"no profile rule answers to selector {selector!r}")
+            spec = self.rules[idx[0]].spec
+        if not isinstance(spec, AnalogSpec):
+            raise ValueError(
+                f"selector {selector!r} resolves to {DIGITAL!r}; it has "
+                f"no field {path!r}")
+        return _get(spec, path)
 
     # ---- identity --------------------------------------------------------
     def signature(self) -> str:

@@ -7,6 +7,7 @@ faults and self-healing (``health``, ``age_pack``)."""
 
 from repro_torch.serve.analog_engine import (
     age_pack,
+    analog_eval_loss,
     analog_eval_metrics,
     calibrate_lm,
     decode_lm,
@@ -30,6 +31,7 @@ from repro_torch.serve.runtime import (
 
 __all__ = [
     "age_pack",
+    "analog_eval_loss",
     "analog_eval_metrics",
     "calibrate_lm",
     "decode_lm",

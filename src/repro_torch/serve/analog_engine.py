@@ -418,6 +418,12 @@ def analog_eval_metrics(cfg: ModelConfig, params: dict, pack: AnalogPack,
     return {"loss": (logz - gold).mean(), "top1": top1}
 
 
+def analog_eval_loss(cfg: ModelConfig, params: dict, pack: AnalogPack,
+                     tokens, targets) -> torch.Tensor:
+    """Cross-entropy of the analog model (accuracy metric for sweeps)."""
+    return analog_eval_metrics(cfg, params, pack, tokens, targets)["loss"]
+
+
 def decode_lm(cfg: ModelConfig, params: dict, prompts, n_new: int, *,
               pack: Optional[AnalogPack] = None) -> torch.Tensor:
     """Batched greedy serving: prefill + ``n_new - 1`` decode steps;

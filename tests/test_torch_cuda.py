@@ -34,6 +34,12 @@ shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_parasitics.py``, ``tests/test_torch_paged.py`` and
 ``chip_smoke.py``.
 
+The sweep engine on the card: ``ServeEvaluator`` at the smoke config
+with ``fused="kernel"`` equals ``serve_serial_reference`` metric for
+metric, and a ``ClassifierEvaluator`` grid with ``fused="kernel"`` gives
+the same accuracies with the fused MVM kernel swapped for its plain
+version.
+
 Drift, stuck-cell faults and healing on the card: at one full-width site
 the fresh age leaves every conductance equal, the drift exponents taken
 back out of the aged conductances and the stuck share follow their
@@ -42,6 +48,8 @@ with aging that changes no value leaves the dense (flash kernel) and paged
 (paged-attention kernel) runtimes' tokens as they were; and
 ``resilient_step`` re-raises a failed launch at once, with no retry.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -918,3 +926,74 @@ def test_resilient_step_never_retries_a_failed_launch(cuda_device):
                         gm[..., :128].contiguous(), backend="kernel", **kw)
     torch.cuda.synchronize()
     assert y.shape == (1, 128) and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.cuda
+def test_serve_sweep_on_the_card_equals_serial(cuda_device):
+    """The executor's cached-codes path and the serial ``program_lm`` path
+    run the same kernels on the same seeds: equal metrics."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.sweep import (Axis, ServeEvaluator, SweepSpec, run_sweep,
+                                   serve_serial_reference)
+
+    cfg, params, calib, _ = _smoke_serving(cuda_device)
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 16)),
+                             device=cuda_device)
+    targets = torch.roll(tokens, -1, dims=1)
+    prompts = tokens[:, :6]
+    ev = ServeEvaluator(cfg, params, calib, tokens, targets, prompts=prompts,
+                        decode_new=4)
+    sweep = SweepSpec(
+        name="card", base=A.design_a(error=E.state_proportional(0.0),
+                                     fused="kernel"),
+        axes=(Axis("error.alpha", (0.02, 0.05)),), trials=2, seed=3)
+    t_fused.reset_launch_counts()
+    res = run_sweep(sweep, ev)
+    assert t_fused.LAUNCHES["fused_mvm"] > 0
+    for r, pt in zip(res, sweep.expand()):
+        ref = serve_serial_reference(cfg, params, pt.spec, calib, tokens,
+                                     targets, prompts=prompts, decode_new=4,
+                                     trials=2, seed=3)
+        assert r.values == ref, r.tag
+        assert all(np.isfinite(v["loss"]) for v in r.values)
+
+
+@pytest.mark.cuda
+def test_classifier_sweep_kernel_route_equals_plain(cuda_device, monkeypatch):
+    """A Design-A grid on the fused route: the fused MVM kernel and its
+    plain version give the same accuracies, trial for trial."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.sweep import (Axis, ClassifierEvaluator, SweepSpec,
+                                   run_sweep)
+
+    rng = np.random.default_rng(4)
+    dims = (64, 256, 128, 16)
+    layers = [(rng.standard_normal((dims[i], dims[i + 1])).astype(np.float32)
+               * dims[i] ** -0.5, np.zeros(dims[i + 1], np.float32))
+              for i in range(3)]
+    xca = rng.standard_normal((64, 64)).astype(np.float32)
+    xte = rng.standard_normal((256, 64)).astype(np.float32)
+    yte = rng.integers(0, 16, 256)
+    ev = ClassifierEvaluator(layers, xca, xte, yte, device=cuda_device)
+    sweep = SweepSpec(
+        name="card_cls",
+        base=dataclasses.replace(A.design_a(
+            error=E.state_proportional(0.0), fused="kernel"), max_rows=48),
+        axes=(Axis("mapping.bits_per_cell", (None, 2)),
+              Axis("error.alpha", (0.0, 0.05))), trials=2, seed=5)
+    t_fused.reset_launch_counts()
+    kernel = run_sweep(sweep, ev)
+    assert t_fused.LAUNCHES["fused_mvm"] > 0
+    fused_mvm = t_ops.fused_mvm
+
+    def plain(*a, **kw):
+        return fused_mvm(*a, **dict(kw, backend="oracle"))
+
+    monkeypatch.setattr(t_ops, "fused_mvm", plain)
+    t_fused.reset_launch_counts()
+    oracle = run_sweep(sweep, ev)
+    assert t_fused.LAUNCHES["fused_mvm"] == 0
+    assert [r.values for r in kernel] == [r.values for r in oracle]
