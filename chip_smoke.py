@@ -105,7 +105,29 @@ lines:
    plain version gives equal metrics; the three kernels launch.  Printed:
    each point's metrics and seconds by phase, the digital loss, SW's
    seconds and peak device memory.  SW's launches are added to those
-   three kernels' entries of the kernel list.
+   three kernels' entries of the kernel list;
+10. path RW — rwkv6-3b, the attention-free family, at its published
+    width (d 2560, 40 heads of 64, d_ff 8960, vocab 65536, bfloat16),
+    weights from a seed, depth cut to ``--layers``: its eight projections
+    a layer and its head programmed with the main path's Design A
+    (``fused="kernel"``), calibrated on 4 x 32 tokens, and serving 4
+    prompts of 16 tokens, 8 new each, through ``decode_lm``.  Gates: RW1
+    the tokens and the prefill logits equal the same pack's on B1's plain
+    version; RW2 prefill then one ``decode_step`` matches the forward over
+    S + 1 tokens under ``tests/test_arch_smoke.py``'s tolerance (float32;
+    bfloat16 printed); RW3 the chunked recurrence within the reference's
+    bound of the step-by-step one at the full-width shapes, both modes;
+    RW4 B1 launched, and equal to its plain version at the ``ck`` and
+    ``cv`` sites and the head, M = 4 and 128.  Printed: the decode step,
+    calibration seconds and peak memory;
+11. phase FAM — the other families at published width: qwen3-moe (1
+    layer), internvl2 (2 layers, 256 patch embeddings), zamba2 (6 layers)
+    and whisper (2 + 2 layers, 1500 frames) hold prefill/decode against
+    the forward as RW2 does; qwen3-moe, internvl2 and arctic-480b (its
+    smoke config: one layer of experts is 53.5 GB in float32) serve 4
+    prompts through ``decode_lm`` on B1 with the plain route's tokens;
+    an MoE forward twice gives equal logits.  RW's and FAM's B1 launches
+    are added to B1's entry of the kernel list.
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON (the
@@ -1981,6 +2003,351 @@ def path_sw(torch, ops, cfg, params, calib, kern_fused):
                        "secs": secs}
 
 
+# ---------------------------------------------------------------------------
+# path RW and phase FAM: the other model families
+# ---------------------------------------------------------------------------
+
+RW_PROMPT, RW_NEW = 16, 8       # RW's 4 prompts of 16 tokens, 8 new each
+FAM_PROMPT, FAM_NEW = 8, 4      # FAM's analog check: 4 prompts x 8, 4 new
+ATOL_PREFILL, ATOL_DECODE, RTOL = 2e-3, 3e-3, 2e-2  # tests/test_arch_smoke
+
+
+def b1_at_sites(torch, A, E, ops, tol, sites, ms=(4, 128)) -> dict:
+    """B1 against its plain version to the bit at each (name, K, N) site,
+    for each row count in ``ms``, on Design-A conductances of a random
+    weight; timed at M = 4 on the device alone beside the plain version.
+    Launches here hold the kernel and are not a path's."""
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for i, (name, k, n) in enumerate(sites):
+        gp, gm, inputs = full_width_site(torch, A, E, k, n, ms,
+                                         SEED + 300 + i)
+        line = []
+        for x, lo, hi, scale in inputs:
+            kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=7,
+                      n_bits=None, scale=scale)
+            y = ops.fused_mvm(x, gp, gm, backend="kernel", **kw)
+            y_ref = ops.fused_mvm(x, gp, gm, backend="oracle", **kw)
+            torch.cuda.synchronize()
+            r = tol.fused_mvm_check(y, y_ref, x, gp, gm, lo, hi, scale,
+                                    adc_bits=8, cell_bits=7, n_bits=None)
+            if not r["ok"] or not torch.equal(y, y_ref):
+                raise AssertionError(f"B1 at {name} M={x.shape[0]} is not "
+                                     f"its plain version to the bit: {r}")
+            out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+            line.append(f"M={x.shape[0]} equal to plain")
+        x, lo, hi, scale = inputs[0]
+        kw = dict(adc_lo=lo, adc_hi=hi, adc_bits=8, cell_bits=7, n_bits=None,
+                  scale=scale)
+        ms_k = graph_time(lambda: ops.fused_mvm(x, gp, gm, backend="kernel",
+                                                **kw))
+        ms_p = cuda_time(lambda: ops.fused_mvm(x, gp, gm, backend="oracle",
+                                               **kw), reps=2, warmup=1)
+        out["ms"] += ms_k
+        out["plain_ms"] += ms_p
+        print(f"B1 at {name} (K={k}, N={n}, P={x.shape[1]} partitions of "
+              f"{x.shape[2]} rows): {'; '.join(line)}; M=4 kernel "
+              f"{ms_k:.4f} ms (device), plain {ms_p:.3f} ms", flush=True)
+        del gp, gm, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def consistency(torch, api, cfg, params, tokens, kw) -> dict:
+    """Prefill then one ``decode_step`` against the forward over S + 1
+    tokens (``tests/test_arch_smoke.py``): the largest excess over
+    ``atol + rtol * |forward|`` of the prefill's and the decode's logits
+    (<= 0 passes) and their largest differences."""
+    s = tokens.shape[1]
+    lf = api.forward(cfg, params, tokens, **kw)[0]
+    lp, cache = api.prefill(cfg, params, tokens, s + 4, **kw)
+    nt = torch.argmax(lp, -1).to(torch.int32)
+    ld, cache = api.decode_step(cfg, params, nt, cache)
+    lf2, aux = api.forward(cfg, params, torch.cat([tokens, nt], 1), **kw)
+
+    def excess(a, b, atol):
+        d = (a - b).abs()
+        return float((d - atol - RTOL * b.abs()).max()), float(d.max())
+
+    e_p, d_p = excess(lp[:, 0], lf[:, -1], ATOL_PREFILL)
+    e_d, d_d = excess(ld[:, 0], lf2[:, -1], ATOL_DECODE)
+    finite = bool(torch.isfinite(lf2).all() and torch.isfinite(ld).all())
+    drop = aux.get("moe/drop_frac")
+    return {"excess": max(e_p, e_d), "prefill_diff": d_p, "decode_diff": d_d,
+            "finite": finite,
+            "drop_frac": None if drop is None else float(drop.max())}
+
+
+def hold_consistency(torch, label, api, cfg, params, tokens, kw):
+    """``consistency`` in float32 (the reference's tolerance is a float32
+    one), raising past it; the served dtype's differences printed."""
+    gate = consistency(torch, api, dataclasses.replace(cfg, dtype="float32"),
+                       params, tokens, kw)
+    served = consistency(torch, api, cfg, params, tokens, kw)
+    print(f"{label}: prefill + decode_step vs forward over S+1 in float32: "
+          f"max diff prefill {gate['prefill_diff']:.3e}, decode "
+          f"{gate['decode_diff']:.3e} (within atol {ATOL_PREFILL}/"
+          f"{ATOL_DECODE} + rtol {RTOL}: {gate['excess'] <= 0}); in "
+          f"{cfg.dtype}: {served['prefill_diff']:.3e} / "
+          f"{served['decode_diff']:.3e} (printed only)"
+          + ("" if gate["drop_frac"] is None
+             else f"; MoE drop_frac {gate['drop_frac']}"), flush=True)
+    if gate["excess"] > 0 or not gate["finite"] or not served["finite"]:
+        raise AssertionError(f"{label}: prefill/decode disagree with the "
+                             f"forward past the reference's tolerance")
+    if gate["drop_frac"]:
+        raise AssertionError(f"{label}: the forward dropped tokens")
+
+
+def path_rw(torch, ops, tol, args, kern_fused):
+    """Path RW: rwkv6-3b at its published width (d 2560, 40 heads of 64,
+    d_ff 8960, vocab 65536, bfloat16), weights from a seed, depth cut to
+    ``--layers``, every one of its eight projections per layer and its
+    head on arrays (the main path's Design A, ``fused="kernel"``):
+    ``program_lm``, ``calibrate_lm`` on 4 x 32 tokens, ``decode_lm`` on 4
+    prompts of 16 tokens, 8 new each; B1's launches are read from that
+    run.  Gates, each raising on failure:
+    RW1. the tokens equal the same pack's with B1 on its plain version
+         (``fused="oracle"``), and so do the prefill logits
+         (``torch.equal``);
+    RW2. digitally, prefill then one ``decode_step`` matches the forward
+         over S + 1 tokens under ``tests/test_arch_smoke.py``'s tolerance
+         (in float32; the bfloat16 differences printed);
+    RW3. the chunked recurrence equals ``decay_recurrence_naive`` within
+         the reference's bound (rtol 3e-4, atol 3e-5 on y, 5e-5 on the
+         state) at the full-width shapes (4 x 32 tokens, 40 heads of 64),
+         float32, in both modes;
+    RW4. B1 launched, and equals its plain version at the ``ck`` (N =
+         8960) and ``cv`` (K = 8960) sites and at the head, M = 4 and 128.
+    Printed: decode-step time, calibration seconds and peak memory.
+    Returns (B1 launches, RW's numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.models import recurrent as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve import calibrate_lm, decode_lm, program_lm
+
+    t_rw = time.perf_counter()
+    base = get_config("rwkv6-3b")
+    cfg = dataclasses.replace(base, n_layers=args.layers)
+    print(f"path RW: {cfg.name} at published width d={cfg.d_model} "
+          f"H={cfg.n_heads}x{cfg.d_model // cfg.n_heads} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} dtype={cfg.dtype}; depth cut to {cfg.n_layers} "
+          f"of {base.n_layers} layers; weights from seed {SEED}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, SEED, device=DEVICE)
+    spec = A.design_a(error=E.state_proportional(0.05), fused="kernel")
+    t0 = time.perf_counter()
+    pack = program_lm(cfg, params, spec, seed=7)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    calib = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=DEVICE)
+    pack = calibrate_lm(cfg, params, pack, calib)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prompts = torch.randint(0, cfg.vocab, (4, RW_PROMPT), generator=gen,
+                            device=DEVICE)
+    kern_fused.reset_launch_counts()
+    toks = decode_lm(cfg, params, prompts, RW_NEW, pack=pack)
+    torch.cuda.synchronize()
+    launches = kern_fused.LAUNCHES["fused_mvm"]
+    n_sites = len(pack.layer_weights) * cfg.n_layers + 1
+    print(f"path RW: programmed {len(pack.layer_weights)} sites x "
+          f"{cfg.n_layers} layers + head in {t1 - t0:.2f} s; calibrated on "
+          f"4x32 tokens in {t2 - t1:.2f} s; decode_lm of 4x{RW_PROMPT} "
+          f"prompts, {RW_NEW} new tokens each: {toks.tolist()}; B1 "
+          f"launches {launches} (expected {n_sites} a step x {RW_NEW} "
+          f"steps = {n_sites * RW_NEW})", flush=True)
+    if toks.shape != (4, RW_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"path RW: bad tokens {toks}")
+
+    # RW1: the same pack on B1's plain version
+    plain = with_spec(pack, fused="oracle")
+    toks_p = decode_lm(cfg, params, prompts, RW_NEW, pack=plain)
+    lg_k = T.prefill(cfg, params, prompts, RW_PROMPT, pack=pack)[0]
+    lg_p = T.prefill(cfg, params, prompts, RW_PROMPT, pack=plain)[0]
+    rw1 = torch.equal(toks, toks_p) and torch.equal(lg_k, lg_p)
+    print(f"RW1: decode_lm tokens through B1 == plain route: "
+          f"{torch.equal(toks, toks_p)}; prefill logits equal: "
+          f"{torch.equal(lg_k, lg_p)} (finite: "
+          f"{bool(torch.isfinite(lg_k).all())})", flush=True)
+    if not rw1 or not bool(torch.isfinite(lg_k).all()):
+        raise AssertionError("path RW: RW1 failed")
+
+    # decode-step time at 4 rows (median of steps 3..12)
+    logits, cache = T.prefill(cfg, params, prompts, RW_PROMPT, pack=pack)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = T.decode_step(cfg, params, tok, cache, pack=pack)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_s = sorted(times[2:])[len(times[2:]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del pack, plain, cache
+    torch.cuda.empty_cache()
+
+    # RW2: digital prefill/decode consistency
+    hold_consistency(torch, "RW2", get_model(cfg), cfg, params, prompts, {})
+    del params
+    torch.cuda.empty_cache()
+
+    # RW3: the chunked recurrence at the full-width shapes, both modes
+    b, s, h, hd = 4, 32, cfg.n_heads, cfg.d_model // cfg.n_heads
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+
+    def rnd(*shape, sc=0.5):
+        return torch.randn(shape, generator=g, device=DEVICE) * sc
+
+    r, k, v = rnd(b, s, h, hd), rnd(b, s, h, hd), rnd(b, s, h, hd)
+    lw = -torch.exp(rnd(b, s, h, hd))
+    worst = 0.0
+    for u, chunk in ((rnd(h, hd, sc=0.3), 32), (None, 64)):
+        y1, s1 = R.chunked_decay_recurrence(r, k, v, lw, u=u, chunk=chunk)
+        y2, s2 = R.decay_recurrence_naive(r, k, v, lw, u=u)
+        ok = torch.allclose(y1, y2, rtol=3e-4, atol=3e-5) \
+            and torch.allclose(s1, s2, rtol=3e-4, atol=5e-5)
+        worst = max(worst, float((y1 - y2).abs().max()),
+                    float((s1 - s2).abs().max()))
+        if not ok:
+            raise AssertionError(f"path RW: RW3 failed in "
+                                 f"{'mamba' if u is None else 'rwkv'} mode")
+    print(f"RW3: chunked recurrence == decay_recurrence_naive at "
+          f"{b}x{s}x{h}x{hd} in float32, rwkv (chunk 32) and mamba (chunk 64) "
+          f"modes, within rtol 3e-4 / atol 3e-5 (y), 5e-5 (state); max "
+          f"|diff| {worst:.3e}", flush=True)
+
+    # RW4: B1 at the ck, cv and head sites
+    if launches == 0:
+        raise AssertionError("path RW: B1 never launched")
+    sites = b1_at_sites(torch, A, E, ops, tol,
+                        [("rwkv_ck", cfg.d_model, cfg.d_ff),
+                         ("rwkv_cv", cfg.d_ff, cfg.d_model),
+                         ("head", cfg.d_model, cfg.vocab)])
+    print(f"RW4: B1 launched {launches} times in RW's run and equals its "
+          f"plain version at ck, cv and the head, M = 4 and 128", flush=True)
+    print(f"path RW decode step (4 rows, {cfg.n_layers} layers, "
+          f"{n_sites} B1 sites): {step_s * 1e3:.3f} ms, "
+          f"{4 / step_s:.1f} tokens/s; calibration {t2 - t1:.2f} s; peak "
+          f"memory {peak:.2f} GiB; path RW in "
+          f"{time.perf_counter() - t_rw:.1f} s", flush=True)
+    return launches, {"step_s": step_s, "calib_s": t2 - t1, "peak": peak,
+                      "max_abs_err": sites["max_abs_err"]}
+
+
+def fam_analog(torch, cfg, params, kern_fused, kw_calib) -> int:
+    """Program and calibrate ``cfg`` (the main path's Design A with
+    ``fused="kernel"``) and serve 4 prompts through ``decode_lm``: the
+    tokens must equal the plain route's.  Returns B1's launches in the
+    kernel route's run."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.serve import calibrate_lm, decode_lm, program_lm
+
+    spec = A.design_a(error=E.state_proportional(0.05), fused="kernel")
+    pack = program_lm(cfg, params, spec, seed=7)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    n_pre = cfg.n_frontend_tokens if kw_calib else 0
+    calib = torch.randint(0, cfg.vocab, (4, n_pre + 32), generator=gen,
+                          device=DEVICE)
+    pack = calibrate_lm(cfg, params, pack, calib, **kw_calib)
+    prompts = torch.randint(0, cfg.vocab, (4, FAM_PROMPT), generator=gen,
+                            device=DEVICE)
+    kern_fused.reset_launch_counts()
+    toks = decode_lm(cfg, params, prompts, FAM_NEW, pack=pack)
+    torch.cuda.synchronize()
+    launches = kern_fused.LAUNCHES["fused_mvm"]
+    toks_p = decode_lm(cfg, params, prompts, FAM_NEW,
+                       pack=with_spec(pack, fused="oracle"))
+    print(f"FAM {cfg.name}: {len(pack.layer_weights)} analog sites x "
+          f"{cfg.n_layers} layers + head; decode_lm through B1 == plain "
+          f"route: {torch.equal(toks, toks_p)} ({toks.tolist()}); B1 "
+          f"launches {launches}", flush=True)
+    if not torch.equal(toks, toks_p) or launches == 0:
+        raise AssertionError(f"FAM {cfg.name}: the kernel route's tokens "
+                             f"differ from the plain route's, or B1 never "
+                             f"launched")
+    return launches
+
+
+def phase_fam(torch, kern_fused) -> int:
+    """Phase FAM: the other families on the card at published width.
+    Digitally (gate in float32 under ``tests/test_arch_smoke.py``'s
+    tolerance, bfloat16 printed): qwen3-moe-235b-a22b at 1 layer (capacity
+    factor n_experts / top_k, so no token drops and the forward and the
+    decode route the same tokens), internvl2-26b at 2 layers with prefix
+    embeddings, zamba2-7b at 6 layers (one shared-attention application),
+    whisper-large-v3 at 2 + 2 layers over 1500 frames.  Through the analog
+    engine (B1): qwen3-moe, internvl2 and arctic-480b at its smoke config
+    (one layer of its experts is 53.5 GB in float32), ``decode_lm`` equal
+    to the plain route; an MoE forward twice gives equal logits.  Returns
+    B1's launches in FAM's kernel-route runs."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.registry import get_model
+
+    t_fam = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    launches = 0
+
+    def prefix(cfg, b):
+        return torch.randn((b, cfg.n_frontend_tokens, cfg.d_model),
+                           generator=gen, device=DEVICE) * 0.02
+
+    cases = [
+        ("qwen3-moe-235b-a22b", dict(n_layers=1), True),
+        ("internvl2-26b", dict(n_layers=2), True),
+        ("zamba2-7b", dict(n_layers=6), False),
+        ("whisper-large-v3", dict(n_layers=2, n_enc_layers=2), False),
+    ]
+    for arch, cut, analog in cases:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, **cut)
+        if cfg.n_experts:
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        api = get_model(cfg)
+        t = time.perf_counter()
+        params = api.init_params(cfg, SEED, device=DEVICE)
+        # a vlm prompt carries its patch embeddings in its first positions
+        n_pre = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+        tokens = torch.randint(0, cfg.vocab, (4, n_pre + 16), generator=gen,
+                               device=DEVICE)
+        kw = {} if not cfg.frontend else {"prefix_embeds": prefix(cfg, 4)}
+        hold_consistency(torch, f"FAM {arch} (d={cfg.d_model}, "
+                         f"{cfg.n_layers} layers)", api, cfg, params,
+                         tokens, kw)
+        if cfg.n_experts:
+            a = api.forward(cfg, params, tokens)[0]
+            b = api.forward(cfg, params, tokens)[0]
+            print(f"FAM {arch}: the MoE forward twice gives equal logits: "
+                  f"{torch.equal(a, b)}", flush=True)
+            if not torch.equal(a, b):
+                raise AssertionError(f"FAM {arch}: MoE forward not "
+                                     f"deterministic")
+        if analog:
+            kw_calib = {} if not cfg.frontend \
+                else {"prefix_embeds": prefix(cfg, 4)}
+            launches += fam_analog(torch, cfg, params, kern_fused, kw_calib)
+        print(f"FAM {arch} in {time.perf_counter() - t:.1f} s", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    cfg = get_smoke_config("arctic-480b")
+    params = get_model(cfg).init_params(cfg, SEED, device=DEVICE)
+    launches += fam_analog(torch, cfg, params, kern_fused, {})
+    print(f"phase FAM in {time.perf_counter() - t_fam:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; B1 launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -2088,13 +2455,23 @@ def main() -> int:
     sw_counts, sw = path_sw(torch, ops, cfg, params, calib, kern_fused)
     print(f"path SW in {time.perf_counter() - t:.1f} s; launches "
           f"{sw_counts}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    rw_launches, rw = path_rw(torch, ops, tol, args, kern_fused)
+    print(f"path RW decode step: {rw['step_s'] * 1e3:.3f} ms, "
+          f"{4 / rw['step_s']:.1f} tokens/s on {card}; B1 launches "
+          f"{rw_launches}", flush=True)
+    fam_launches = phase_fam(torch, kern_fused)
 
     kernels = [
         {"name": "fused_mvm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_mvm.cu",
          "replaces": FUSED_REPLACES,
-         "launches": counts["fused_mvm"] + sw_counts["fused_mvm"],
-         "max_abs_err": max(fm["max_abs_err"], grid["max_abs_err"]),
+         "launches": counts["fused_mvm"] + sw_counts["fused_mvm"]
+         + rw_launches + fam_launches,
+         "max_abs_err": max(fm["max_abs_err"], grid["max_abs_err"],
+                            rw["max_abs_err"]),
          "ms": fm["ms"], "plain_ms": fm["plain_ms"],
          "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
          "library_ms": fm["library_ms"]},

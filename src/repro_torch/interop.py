@@ -8,6 +8,12 @@ on identical weights and identical programmed conductances — which is
 how the stages downstream of random programming noise are held against
 the reference (``torch.Generator`` cannot reproduce ``jax.random``).
 
+Both loaders follow the tree they are given: the transformer families'
+``layers`` stacks (``attn``/``mlp``, ``moe``, ``rwkv``), the hybrid's
+``layers``/``shared`` and the encoder-decoder's ``encoder``/``decoder``
+trees, and a pack's sites by name (``wq`` ... ``w_down``, ``rwkv_wr`` ...
+``rwkv_cr``, ``head``).
+
 This module uses numpy and torch only.
 """
 

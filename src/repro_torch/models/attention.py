@@ -1,6 +1,7 @@
 """Attention block: GQA/MQA, RoPE, optional QKV bias / per-head qk-norm /
-sliding window, prefill, dense-cache decode and paged decode (counterpart
-of ``repro.models.attention``).
+sliding window, prefill, dense-cache decode and paged decode, and the
+encoder-decoder's cross attention (counterpart of
+``repro.models.attention``).
 
 Decode writes the new token's K/V into the cache (or the page pool) **in
 place** (the reference builds a new array with ``.at[].set``): the callers
@@ -167,3 +168,28 @@ def _paged_decode(q, k, v, pool: dict, cache_len, paged: dict, *, causal,
 
     return paged_attention(q[:, 0], pk, pv, ptab, pos + 1,
                            backend=paged["backend"])[:, None]
+
+
+def cross_attention_block(p: dict, x: torch.Tensor,
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                          cfg: ModelConfig, *,
+                          ctx: Optional[AnalogCtx] = None,
+                          aux: Optional[dict] = None) -> torch.Tensor:
+    """Whisper-style cross attention of the decoder stream x (B, S, d)
+    against cached encoder K/V, each (B, Senc, KV, hd)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = dense(x, p["wq"], "xattn_wq", ctx, aux).reshape(b, s, h, hd)
+    k, v = enc_kv
+    out = streaming_attention(q, k, v, q_offset=0, causal=False, window=None)
+    return dense(out.reshape(b, s, h * hd), p["wo"], "xattn_wo", ctx, aux)
+
+
+def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the encoder's output once into cross-attention K/V."""
+    b, se, _ = enc_out.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, se, kv, hd)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, se, kv, hd)
+    return k, v

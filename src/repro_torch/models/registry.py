@@ -1,6 +1,7 @@
 """Model registry (counterpart of ``repro.models.registry``): family ->
-entry points.  Only the dense family is ported; the others raise and are
-ROADMAP queue A item 10."""
+entry points.  dense / moe / vlm / ssm (rwkv) run on the unified
+transformer; the hybrid and the encoder-decoder have their own modules
+and no batched decode loop, continuous batching or paged KV."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,7 +19,11 @@ class ModelApi:
     prefill: Callable          # (cfg, params, tokens, max_len, **kw)
     decode_step: Callable      # (cfg, params, token, cache, **kw)
     init_cache: Callable       # (cfg, batch, max_len, *, device)
+    # batched greedy serving loop: (cfg, params, prompts, n_new, **kw)
+    # -> (B, n_new) tokens; None for families without one
     decode_loop: Optional[Callable] = None
+    # continuous batching (serve.runtime): right-padded prefill and
+    # slot-wise cache insert/evict
     prefill_ragged: Optional[Callable] = None
     cache_slot_insert: Optional[Callable] = None
     cache_slot_evict: Optional[Callable] = None
@@ -44,13 +49,43 @@ _TRANSFORMER = ModelApi(
     decode_step_paged=transformer.decode_step_paged,
 )
 
-_BY_FAMILY = {"dense": _TRANSFORMER}
+_HYBRID = ModelApi(
+    init_params=hybrid.init_params,
+    forward=hybrid.forward,
+    prefill=hybrid.prefill,
+    decode_step=hybrid.decode_step,
+    init_cache=hybrid.init_cache,
+)
+
+_ENCDEC = ModelApi(
+    init_params=encdec.init_params,
+    forward=encdec.forward,
+    prefill=encdec.prefill,
+    decode_step=encdec.decode_step,
+    init_cache=encdec.init_cache,
+)
+
+_BY_FAMILY = {
+    "audio": _ENCDEC,
+    "hybrid": _HYBRID,
+    "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
+    "vlm": _TRANSFORMER,
+    "ssm": _TRANSFORMER,
+}
+
+
+def families_with(attr: str) -> tuple:
+    """Families whose ModelApi provides ``attr`` (derived from the
+    registry, so error messages cannot drift from it)."""
+    return tuple(sorted(f for f, api in _BY_FAMILY.items()
+                        if getattr(api, attr) is not None))
+
+
+def decode_loop_families() -> tuple:
+    """Families with the batched serving decode loop."""
+    return families_with("decode_loop")
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    api = _BY_FAMILY.get(cfg.family)
-    if api is None or cfg.rwkv or cfg.n_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"port serves {sorted(_BY_FAMILY)} (ROADMAP queue A item 10)")
-    return api
+    return _BY_FAMILY.get(cfg.family, _TRANSFORMER)

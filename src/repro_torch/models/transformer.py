@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense family (counterpart of the dense path of
-``repro.models.transformer``).
+"""Decoder-only LM covering the dense / moe / vlm / ssm (rwkv) families
+(counterpart of ``repro.models.transformer``).
 
 Parameters are nested dicts of float32 tensors with a leading layer axis
 (``params["layers"]["attn"]["wq"]`` is ``(L, d, H * hd)``), laid out as
@@ -14,6 +14,13 @@ shape ``(L, B, S_max, KV, hd)`` in ``cfg.dtype``; decode steps write into
 them in place (see ``models.attention``).  Paged serving keeps a global page
 pool ``{"attn": {"k", "v"}}`` of ``(L, P, page_size, KV, hd)`` instead
 (:func:`init_page_pool`, :func:`prefill_cached`, :func:`decode_step_paged`).
+The rwkv family carries its recurrent state in place of K/V,
+``{"layers": {"rwkv": {"wkv", "shift_t", "shift_c"}}, "len"}`` stacked
+over layers, and has no ragged, paged or cached-prefix prefill (each
+raises with the reference's reason).  MoE layers run ``models.mlp.
+moe_block`` (plus the dense MLP beside it where ``cfg.dense_residual``).
+``prefix_embeds`` (B, P, d) is the vlm/audio frontend stub: it overwrites
+the first P token embeddings.
 """
 
 from __future__ import annotations
@@ -28,9 +35,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.analog import AnalogSpec, AnalogWeights, analog_matmul
 from repro_torch.core.errors import generator
 from repro_torch.hw.profile import Profile, SiteSpecs
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_block, init_attention
 from repro_torch.models.layers import AnalogCtx, norm
-from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.models.mlp import init_mlp, init_moe, mlp_block, moe_block
 
 GLOBAL_WINDOW = 1 << 30
 
@@ -92,10 +100,6 @@ class AnalogPack:
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> dict:
     """float32 master parameters drawn from ``seed`` on ``device``."""
-    if cfg.rwkv or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (ROADMAP queue A "
-            f"item 10 ports the others)")
     gen = generator(seed, device)
     d, l, v = cfg.d_model, cfg.n_layers, cfg.vocab
     f32 = dict(dtype=torch.float32, device=device)
@@ -105,12 +109,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = torch.randn((d, v), generator=gen, **f32) * d ** -0.5
-    p["layers"] = {
+    if cfg.rwkv:
+        p["layers"] = {"rwkv": ssm_mod.init_rwkv(gen, cfg, l, device),
+                       "norm1": _norm_init(cfg, l, f32),
+                       "norm2": _norm_init(cfg, l, f32)}
+        return p
+    layers: Dict[str, object] = {
         "attn": init_attention(gen, cfg, l, device),
         "norm1": _norm_init(cfg, l, f32),
         "norm2": _norm_init(cfg, l, f32),
-        "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, l, device),
     }
+    if cfg.n_experts:
+        layers["moe"] = init_moe(gen, cfg, l, device)
+    if not cfg.n_experts or cfg.dense_residual:
+        layers["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, l, device)
+    p["layers"] = layers
     return p
 
 
@@ -149,16 +162,35 @@ def _block(cfg: ModelConfig, p_l: dict, x: torch.Tensor, *, positions,
            window, cache_l: Optional[dict], cache_len,
            actx: Optional[AnalogCtx], attn_backend: str = "stream",
            paged: Optional[dict] = None):
+    """One layer: returns (x, the layer's new cache entry, aux).  The cache
+    entry is {"k", "v"} for attention, {"wkv", "shift_t", "shift_c"} for
+    rwkv."""
     aux: Dict[str, torch.Tensor] = {}
+    if cfg.rwkv:
+        decode = cache_len is not None and cache_l is not None
+        h, new_t = ssm_mod.rwkv_time_mix(
+            p_l["rwkv"], norm(x, p_l["norm1"], cfg.norm), cfg,
+            state=cache_l, decode=decode, ctx=actx, aux=aux)
+        x = x + h
+        h, new_c = ssm_mod.rwkv_channel_mix(
+            p_l["rwkv"], norm(x, p_l["norm2"], cfg.norm),
+            state=cache_l, decode=decode, ctx=actx, aux=aux)
+        return x + h, {**new_t, **new_c}, aux
+
     h, new_kv = attention_block(
         p_l["attn"], norm(x, p_l["norm1"], cfg.norm), cfg,
         positions=positions, window=window, cache=cache_l,
         cache_len=cache_len, ctx=actx, aux=aux, attn_backend=attn_backend,
         paged=paged)
     x = x + h
-    x = x + mlp_block(p_l["mlp"], norm(x, p_l["norm2"], cfg.norm), cfg.act,
-                      actx, aux)
-    return x, new_kv, aux
+    h2_in = norm(x, p_l["norm2"], cfg.norm)
+    if cfg.n_experts:
+        h, _ = moe_block(p_l["moe"], h2_in, cfg, ctx=actx, aux=aux)
+        if cfg.dense_residual:
+            h = h + mlp_block(p_l["mlp"], h2_in, cfg.act, actx, aux)
+    else:
+        h = mlp_block(p_l["mlp"], h2_in, cfg.act, actx, aux)
+    return x + h, new_kv, aux
 
 
 def _make_actx(pack: AnalogPack, layer: int, band: int) -> AnalogCtx:
@@ -196,25 +228,26 @@ def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                 pack: Optional[AnalogPack], attn_backend: str = "stream",
                 paged: Optional[dict] = None):
     """All layers, band by band; returns (x, cache, aux).  With ``paged``
-    ({"ptab", "backend"}), ``cache`` is the page pool."""
+    ({"ptab", "backend"}), ``cache`` is the page pool.  Attention caches
+    are written in place; rwkv states come back as new stacks."""
     windows = layer_windows(cfg)
     bands = pack.bands if pack is not None else ((0, cfg.n_layers),)
-    ks, vs, auxes = [], [], []
+    group = "rwkv" if cfg.rwkv else "attn"
+    news, auxes = [], []
     for band, (lo_b, hi_b) in enumerate(bands):
         for i in range(lo_b, hi_b):
-            cache_l = None if cache is None else {
-                "k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
-            x, kv, aux = _block(
+            cache_l = None if cache is None else _layer(cache[group], i)
+            x, new_l, aux = _block(
                 cfg, _layer(params["layers"], i), x, positions=positions,
                 window=None if windows is None else windows[i],
                 cache_l=cache_l, cache_len=cache_len,
                 actx=None if pack is None else _make_actx(pack, i, band),
                 attn_backend=attn_backend, paged=paged)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+            news.append(new_l)
             auxes.append(aux)
-    if cache is None:
-        cache = {"attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    if cache is None or cfg.rwkv:
+        cache = {group: {n: torch.stack([c[n] for c in news])
+                         for n in news[0]}}
     return x, cache, _stack_aux(auxes)
 
 
@@ -228,10 +261,11 @@ def _tokens(params: dict, tokens) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *,
+            prefix_embeds=None,
             pack: Optional[AnalogPack] = None) -> Tuple[torch.Tensor, dict]:
     """Training/eval forward: returns (float32 logits, aux)."""
     tokens = _tokens(params, tokens)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)
     x, _, aux = _run_layers(cfg, params, x, positions=positions, cache=None,
                             cache_len=None, pack=pack)
@@ -242,28 +276,38 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
+    length = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.rwkv:
+        st = ssm_mod.rwkv_state_init(cfg, batch, compute_dtype(cfg),
+                                     device=device)
+        return {"layers": {"rwkv": {
+            n: a[None].expand((cfg.n_layers,) + a.shape).clone()
+            for n, a in st.items()}}, "len": length}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     kw = dict(dtype=compute_dtype(cfg), device=device)
     return {"layers": {"attn": {"k": torch.zeros(shape, **kw),
                                 "v": torch.zeros(shape, **kw)}},
-            "len": torch.zeros((), dtype=torch.int32, device=device)}
+            "len": length}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, max_len: int, *,
+            prefix_embeds=None,
             pack: Optional[AnalogPack] = None) -> Tuple[torch.Tensor, dict]:
-    """Process a prompt, returning (last-token logits, cache)."""
+    """Process a prompt, returning (last-token logits, cache).  An rwkv
+    cache is the state after the prompt (no padding to ``max_len``)."""
     tokens = _tokens(params, tokens)
     s = tokens.shape[1]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(s, device=x.device)
     x, new_cache, _ = _run_layers(cfg, params, x, positions=positions,
                                   cache=None, cache_len=None, pack=pack)
     logits = _head(cfg, params, x[:, -1:], pack)
+    length = torch.tensor(s, dtype=torch.int32, device=x.device)
+    if cfg.rwkv:
+        return logits, {"layers": new_cache, "len": length}
     kv = {n: F.pad(a, (0, 0, 0, 0, 0, max_len - s))
           for n, a in new_cache["attn"].items()}
-    return logits, {"layers": {"attn": kv},
-                    "len": torch.tensor(s, dtype=torch.int32,
-                                        device=x.device)}
+    return logits, {"layers": {"attn": kv}, "len": length}
 
 
 def decode_step(cfg: ModelConfig, params: dict, token, cache: dict, *,
@@ -280,6 +324,9 @@ def decode_step(cfg: ModelConfig, params: dict, token, cache: dict, *,
     """
     if attn_backend not in ("stream", "flash", "flash_oracle"):
         raise ValueError(f"unknown attn_backend {attn_backend!r}")
+    if attn_backend != "stream" and cfg.rwkv:
+        raise ValueError("attn_backend applies to attention caches only; "
+                         "rwkv has no KV cache")
     if attn_backend != "stream" and cfg.sliding_window is not None:
         raise ValueError("the flash-decode kernel has no sliding-window "
                          "mask; use attn_backend='stream'")
@@ -303,6 +350,11 @@ def prefill_ragged(cfg: ModelConfig, params: dict, tokens, *, true_lens,
     per-row logits at ``true_lens - 1`` (B, 1, V) and a cache whose
     ``len`` is ``true_lens``.  Pad positions hold K/V at indices >= the
     row's fill, which decode's ``kv_len`` mask never reads."""
+    if cfg.rwkv:
+        raise ValueError(
+            "prefill_ragged does not support the rwkv family: the "
+            "recurrent state folds right-pad tokens into every row; "
+            "serve rwkv prompts at exact length via prefill() instead")
     tokens = _tokens(params, tokens)
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
@@ -323,6 +375,9 @@ def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int, *,
     ``cfg.dtype``.  Page 0 is the sink page (``serve.kvpool`` never hands it
     out): rows without a live allocation scatter their decode K/V there, and
     no live row's block table references it."""
+    if cfg.rwkv:
+        raise ValueError("paged KV applies to attention caches only; "
+                         "rwkv state is O(1) per slot already")
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
     kw = dict(dtype=compute_dtype(cfg), device=device)
     return {"attn": {"k": torch.zeros(shape, **kw),
@@ -347,6 +402,8 @@ def prefill_cached(cfg: ModelConfig, params: dict, tokens, *, true_lens,
     and a cache holding the context in ``[0, C)`` and the suffix at
     ``ctx_lens + [0, S)``, with ``len`` the total fill ``ctx_lens +
     true_lens``."""
+    if cfg.rwkv:
+        raise ValueError("prefill_cached does not support the rwkv family")
     tokens = _tokens(params, tokens)
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens)
@@ -434,6 +491,7 @@ def cache_slot_evict(slot_cache: dict, slots) -> dict:
 
 
 def greedy_decode(cfg: ModelConfig, params: dict, prompts, n_new: int, *,
+                  prefix_embeds=None,
                   pack: Optional[AnalogPack] = None) -> torch.Tensor:
     """Batched greedy generation: one prefill, then ``n_new - 1`` decode
     steps; returns the (B, n_new) generated tokens."""
@@ -441,7 +499,8 @@ def greedy_decode(cfg: ModelConfig, params: dict, prompts, n_new: int, *,
         raise ValueError(f"greedy_decode needs n_new >= 1, got {n_new}")
     prompts = _tokens(params, prompts)
     s = prompts.shape[1]
-    logits, cache = prefill(cfg, params, prompts, s + n_new - 1, pack=pack)
+    logits, cache = prefill(cfg, params, prompts, s + n_new - 1,
+                            prefix_embeds=prefix_embeds, pack=pack)
     tok = torch.argmax(logits[:, -1], dim=-1)
     out = [tok]
     for _ in range(n_new - 1):
@@ -454,11 +513,20 @@ def greedy_decode(cfg: ModelConfig, params: dict, prompts, n_new: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           prefix_embeds=None):
+    """Token embeddings in ``cfg.dtype``; ``prefix_embeds`` (B, P, d), the
+    frontend stub's, replace the first P positions."""
     dt = compute_dtype(cfg)
     x = params["embed"][tokens].to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    if prefix_embeds is not None:
+        pre = torch.as_tensor(prefix_embeds, device=x.device).to(dt)
+        if pre.shape[1] > x.shape[1]:
+            raise ValueError(f"{pre.shape[1]} prefix embeddings do not fit "
+                             f"in {x.shape[1]} token positions")
+        x = torch.cat([pre, x[:, pre.shape[1]:]], dim=1)
     return x
 
 

@@ -18,7 +18,12 @@ conversion + noise).  ``program_lm`` runs both a layer at a time, so the
 integer codes of a full-width model never sit in memory at once.
 
 Every entry point takes one :class:`AnalogSpec` or a
-:class:`repro_torch.hw.Profile`.  ``age_pack`` derives a pack's device
+:class:`repro_torch.hw.Profile`.  The unified transformer's families are
+served: dense, moe and vlm program their attention and dense-MLP
+projections (MoE experts stay digital), ssm (rwkv) its eight time- and
+channel-mix projections (DESIGN.md §Arch-applicability).  The hybrid has
+no analog hooks and the encoder-decoder no ``layers`` stack; both raise,
+with the reference's reasons.  ``age_pack`` derives a pack's device
 state at an age under each site's drift and stuck-cell fault models,
 seeded like programming; ``repro_torch.serve.health`` manages that state
 over a served pack's life.
@@ -52,15 +57,18 @@ from repro_torch.hw.profile import (
     as_profile,
     check_band_geometry,
 )
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import decode_loop_families, get_model
 from repro_torch.models.transformer import AnalogPack, forward
 
 SpecLike = Union[AnalogSpec, Profile]
 
-#: weight leaves programmed to analog arrays, per parent block
+#: weight leaves programmed to analog arrays, per family and parent block
 DENSE_NAMES = {
     "attn": ("wq", "wk", "wv", "wo"),
     "mlp": ("w_gate", "w_up", "w_down"),
+}
+RWKV_NAMES = {
+    "rwkv": ("wr", "wk", "wv", "wg", "wo", "ck", "cv", "cr"),
 }
 #: analog hook names used inside the blocks (see models/*.py dense() calls)
 HOOK_NAME = {
@@ -68,6 +76,10 @@ HOOK_NAME = {
     ("attn", "wo"): "wo",
     ("mlp", "w_gate"): "w_gate", ("mlp", "w_up"): "w_up",
     ("mlp", "w_down"): "w_down",
+    ("rwkv", "wr"): "rwkv_wr", ("rwkv", "wk"): "rwkv_wk",
+    ("rwkv", "wv"): "rwkv_wv", ("rwkv", "wg"): "rwkv_wg",
+    ("rwkv", "wo"): "rwkv_wo", ("rwkv", "ck"): "rwkv_ck",
+    ("rwkv", "cv"): "rwkv_cv", ("rwkv", "cr"): "rwkv_cr",
 }
 
 #: the lm_head / tied-embedding projection in an ``lm_program_codes`` dict
@@ -81,11 +93,15 @@ def hook_key(seed: int, name: str) -> int:
     return fold_seed(seed, int.from_bytes(h, "big") & 0x7FFFFFFF)
 
 
+def _groups(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
+    return RWKV_NAMES if cfg.rwkv else DENSE_NAMES
+
+
 def lm_hook_names(cfg: ModelConfig) -> List[str]:
-    """Every analog layer-hook name of the dense family, in programming
-    order (head excluded)."""
+    """Every potential analog layer-hook name of this family, in the
+    stable programming order (head excluded)."""
     return [HOOK_NAME[(parent, leaf)]
-            for parent, leaves in DENSE_NAMES.items() for leaf in leaves]
+            for parent, leaves in _groups(cfg).items() for leaf in leaves]
 
 
 def _site_resolution(profile: Profile, sites: List[str], n_layers: int):
@@ -107,11 +123,18 @@ def _site_resolution(profile: Profile, sites: List[str], n_layers: int):
 
 def _analog_leaves(cfg: ModelConfig, params: dict, profile: Profile):
     """``[(hook name, layer-stacked weight, geometry spec)]`` of the sites
-    the profile puts on arrays; raises if there are none."""
+    the profile puts on arrays; raises, with the reference's reasons, if
+    the family has no layer stack or no analog hook, or if every site is
+    digital."""
+    groups = _groups(cfg)
     if "layers" not in params:
-        raise ValueError(f"{cfg.name}: params have no 'layers' stack")
+        raise ValueError(
+            f"family {cfg.family!r} ({cfg.name}) has no 'layers' parameter "
+            f"stack; lm_program_codes supports the unified transformer "
+            f"families (dense / moe / vlm / ssm-rwkv) — see DESIGN.md "
+            f"§Arch-applicability")
     out, n_digital = [], 0
-    for parent, leaves in DENSE_NAMES.items():
+    for parent, leaves in groups.items():
         for leaf in leaves:
             if leaf not in params["layers"].get(parent, {}):
                 continue
@@ -121,12 +144,21 @@ def _analog_leaves(cfg: ModelConfig, params: dict, profile: Profile):
                 n_digital += 1
                 continue
             out.append((name, params["layers"][parent][leaf], site_spec))
-    if not out:
+    if out:
+        return out
+    if n_digital:
+        default = "analog" if isinstance(profile.default, AnalogSpec) \
+            else "digital"
         raise ValueError(
-            f"no analog hooks for {cfg.name}: the profile resolves "
-            f"{n_digital} projection sites to 'digital' and finds no "
-            f"other attn/mlp leaves under params['layers']")
-    return out
+            f"the profile resolves every projection hook of family "
+            f"{cfg.family!r} ({cfg.name}) to 'digital'; at least one "
+            f"site must be analog to program a pack (rules: "
+            f"{[r.pattern for r in profile.rules]}, default {default})")
+    raise ValueError(
+        f"no analog hooks found for family {cfg.family!r} ({cfg.name}): "
+        f"expected {'rwkv' if cfg.rwkv else 'attn/mlp'} projection leaves "
+        f"{sorted(n for g in groups.values() for n in g)} under "
+        f"params['layers']")
 
 
 def _stack_codes(pms: List[ProgrammedMatrix]) -> ProgrammedMatrix:
@@ -364,21 +396,22 @@ def program_lm(cfg: ModelConfig, params: dict, spec: SpecLike, seed: int,
 
 
 def calibrate_lm(cfg: ModelConfig, params: dict, pack: AnalogPack,
-                 calib_tokens) -> AnalogPack:
+                 calib_tokens, prefix_embeds=None) -> AnalogPack:
     """Two-phase range calibration; returns a serving-ready pack.
     Idempotent: calibration already on ``pack`` is stripped first."""
     api = get_model(cfg)
+    kw = {} if prefix_embeds is None else {"prefix_embeds": prefix_embeds}
     pack = dataclasses.replace(pack, layer_lo={}, layer_hi={}, layer_act={},
                                head_lo=None, head_hi=None, head_act=None)
     # phase 1: activation clip ranges (ideal ADC, collect inputs)
     _, aux1 = api.forward(cfg, params, calib_tokens,
-                          pack=dataclasses.replace(pack, collect=True))
+                          pack=dataclasses.replace(pack, collect=True), **kw)
     act = {k[len("act/"):]: v for k, v in aux1.items()
            if k.startswith("act/")}                    # (L,) per site
     pack2 = dataclasses.replace(pack, layer_act=act, collect=True)
 
     # phase 2: pre-ADC ranges with the activation clips installed
-    _, aux2 = api.forward(cfg, params, calib_tokens, pack=pack2)
+    _, aux2 = api.forward(cfg, params, calib_tokens, pack=pack2, **kw)
     lo, hi = {}, {}
     for k, v in aux2.items():
         if not k.startswith("adc/"):
@@ -428,4 +461,11 @@ def decode_lm(cfg: ModelConfig, params: dict, prompts, n_new: int, *,
               pack: Optional[AnalogPack] = None) -> torch.Tensor:
     """Batched greedy serving: prefill + ``n_new - 1`` decode steps;
     returns (B, n_new) tokens, every matmul through the pack if given."""
-    return get_model(cfg).decode_loop(cfg, params, prompts, n_new, pack=pack)
+    api = get_model(cfg)
+    if api.decode_loop is None:
+        raise ValueError(
+            f"family {cfg.family!r} ({cfg.name}) has no batched decode "
+            f"loop; decode_lm serves families "
+            f"{sorted(decode_loop_families())} (encoder-decoder needs "
+            f"per-utterance encoder state, see repro_torch.models.encdec)")
+    return api.decode_loop(cfg, params, prompts, n_new, pack=pack)

@@ -110,7 +110,10 @@ class PagedServeRuntime(ServeRuntime):
         api = get_model(cfg)
         if (api.init_page_pool is None or api.prefill_cached is None
                 or api.decode_step_paged is None):
-            raise ValueError(f"family {cfg.family!r} has no paged-KV support")
+            raise ValueError(
+                f"family {cfg.family!r} has no paged-KV support (needs "
+                f"ModelApi.init_page_pool + prefill_cached + "
+                f"decode_step_paged)")
         self._use_prefix_cache = bool(prefix_cache)
         super().__init__(cfg, params, max_slots=max_slots, max_len=max_len,
                          **kw)

@@ -54,7 +54,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import NEG_INF
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import families_with, get_model
 from repro_torch.models.transformer import AnalogPack
 from repro_torch.runtime.fault import resilient_step
 from repro_torch.serve.health import HEAD_BAND
@@ -231,6 +231,25 @@ class ServeRuntime:
         self._manager, self._clock, self._heal = manager, clock, heal
         if manager is not None:
             pack = manager.aged(clock.at(0) if clock is not None else 1.0)
+        if api.prefill_ragged is None or api.cache_slot_insert is None:
+            raise ValueError(
+                f"family {cfg.family!r} has no continuous-batching support "
+                f"(needs ModelApi.prefill_ragged + cache_slot_insert); "
+                f"families with it: {sorted(families_with('prefill_ragged'))} "
+                f"(rwkv and MoE configs excluded)")
+        if cfg.rwkv:
+            raise ValueError(
+                "continuous batching does not support the rwkv family: "
+                "ragged right-padded prefill would fold pad tokens into "
+                "the recurrent state (DESIGN.md §Serving-runtime)")
+        if cfg.n_experts:
+            raise ValueError(
+                "continuous batching does not support MoE configs: "
+                "capacity-based expert routing computes token keep/drop "
+                "from a batch-wide cumsum, so co-batched rows and pad "
+                "tokens would change a request's output — the scheduling-"
+                "never-changes-outputs contract cannot hold "
+                "(DESIGN.md §Serving-runtime)")
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if buckets is None:

@@ -47,6 +47,11 @@ formulas within 5 sigma of their draws, and a seed replays; forced healing
 with aging that changes no value leaves the dense (flash kernel) and paged
 (paged-attention kernel) runtimes' tokens as they were; and
 ``resilient_step`` re-raises a failed launch at once, with no retry.
+
+The other families on the card: the fused MVM kernel equals its plain
+version at rwkv6-3b's channel-mix shapes (N = 8960 and K = 8960, 4 and
+128 rows); the MoE block gives the same bits on every run; the rwkv, MoE
+and vlm smoke configs served on the kernel give the plain route's tokens.
 """
 
 import dataclasses
@@ -997,3 +1002,102 @@ def test_classifier_sweep_kernel_route_equals_plain(cuda_device, monkeypatch):
     oracle = run_sweep(sweep, ev)
     assert t_fused.LAUNCHES["fused_mvm"] == 0
     assert [r.values for r in kernel] == [r.values for r in oracle]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2560, 8960), (8960, 2560)],
+                         ids=["rwkv_ck", "rwkv_cv"])
+def test_fused_mvm_kernel_equals_plain_at_rwkv_sites(cuda_device, k, n):
+    """B1 at rwkv6-3b's channel-mix shapes (``ck``: N = 8960; ``cv``: K =
+    8960, eight partitions of 1152 rows), Design-A conductances of a
+    random weight, M = 4 and 128 rows: equal to its plain version."""
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.core.quant import quantize_acts
+
+    spec = A.design_a(error=E.state_proportional(0.05))
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5
+    aw = A.program(w, spec, seed=3)
+    p, rows = spec.n_partitions(k), spec.rows_per_partition(k)
+    m_ = spec.mapping
+    for m in (4, 128):
+        xq = quantize_acts(torch.randn((m, k), generator=gen,
+                                       device=cuda_device), spec.input_bits)
+        x = torch.nn.functional.pad(xq.values, (0, p * rows - k)) \
+            .reshape(m, p, rows).contiguous()
+        lo, hi = range_from_samples(fused_pre_adc(x, aw.g_pos, aw.g_neg,
+                                                  None))
+        scale = (m_.levels_per_cell - 1) / (1.0 - m_.g_min) * aw.w_scale \
+            * xq.scale
+        kw = dict(adc_lo=lo.reshape(1), adc_hi=hi.reshape(1), adc_bits=8,
+                  cell_bits=7, n_bits=None, scale=scale)
+        before = t_fused.LAUNCHES["fused_mvm"]
+        y = t_ops.fused_mvm(x, aw.g_pos, aw.g_neg, backend="kernel", **kw)
+        y_ref = t_ops.fused_mvm(x, aw.g_pos, aw.g_neg, backend="oracle", **kw)
+        torch.cuda.synchronize()
+        assert t_fused.LAUNCHES["fused_mvm"] == before + 1
+        assert torch.equal(y, y_ref), m
+
+
+@pytest.mark.cuda
+def test_moe_block_is_deterministic_on_the_card(cuda_device):
+    """The MoE dispatch and combine (a token's slots summed in ascending
+    order, no float atomics): the same bits on every run, capacity
+    overflowing or not, and the dense plain version's values when
+    nothing drops."""
+    from repro_torch.config import ModelConfig
+    from repro_torch.models import mlp as M
+
+    for cf, drops in ((8.0, False), (0.5, True)):
+        cfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=512,
+                          n_heads=8, n_kv_heads=8, d_ff=512, vocab=64,
+                          n_experts=16, top_k=4, moe_d_ff=256,
+                          capacity_factor=cf)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        p = {n_: w[0] for n_, w in M.init_moe(gen, cfg, 1,
+                                              cuda_device).items()}
+        x = torch.randn((4, 64, 512), generator=gen, device=cuda_device)
+        aux = {}
+        y0, _ = M.moe_block(p, x, cfg, aux=aux)
+        assert (float(aux["moe/drop_frac"]) > 0) == drops
+        for _ in range(3):
+            assert torch.equal(M.moe_block(p, x, cfg)[0], y0)
+        if not drops:
+            torch.testing.assert_close(y0, M.moe_block_dense_ref(p, x, cfg),
+                                       rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-moe-235b-a22b",
+                                  "arctic-480b", "internvl2-26b"])
+def test_family_serves_through_kernel_as_plain_route(cuda_device, arch):
+    """The rwkv, MoE and vlm smoke configs programmed, calibrated and
+    served through ``decode_lm`` on the fused MVM kernel: the plain
+    route's tokens, and the kernel launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve import calibrate_lm, decode_lm, program_lm
+
+    cfg = get_smoke_config(arch)
+    params = get_model(cfg).init_params(cfg, 0, device=cuda_device)
+    spec = A.design_a(error=E.state_proportional(0.05), fused="kernel")
+    rng = np.random.default_rng(1)
+    calib = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 16)),
+                            device=cuda_device)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 7)),
+                              device=cuda_device)
+    pack = calibrate_lm(cfg, params, program_lm(cfg, params, spec, seed=7),
+                        calib)
+    t_fused.reset_launch_counts()
+    toks = decode_lm(cfg, params, prompts, 6, pack=pack)
+    assert t_fused.LAUNCHES["fused_mvm"] > 0
+    plain = dataclasses.replace(
+        pack, band_specs=tuple(
+            type(ss)(tuple((n_, dataclasses.replace(s_, fused="oracle"))
+                           for n_, s_ in ss.items))
+            for ss in pack.band_specs),
+        head_spec=dataclasses.replace(pack.head_spec, fused="oracle"))
+    assert torch.equal(toks, decode_lm(cfg, params, prompts, 6, pack=plain))
