@@ -127,7 +127,21 @@ lines:
     smoke config: one layer of experts is 53.5 GB in float32) serve 4
     prompts through ``decode_lm`` on B1 with the plain route's tokens;
     an MoE forward twice gives equal logits.  RW's and FAM's B1 launches
-    are added to B1's entry of the kernel list.
+    are added to B1's entry of the kernel list;
+12. path TR — training: qwen1.5-4b at published width, depth cut to
+    ``--layers``, bf16 activations over fp32 master parameters, remat on,
+    ``SHAPES["train_4k"]``'s 4096 positions with the global batch cut from
+    256 to 2 in 2 microbatches, AdamW (``cosine_schedule(3e-4, 2, 8)``,
+    clip 1.0, weight decay 0.1) on ``SyntheticLM`` batches, every step
+    through ``resilient_step`` and a ``StragglerMonitor``.  Gates: TR1
+    four steps with finite losses and grad norms, a fifth on step 4's
+    batch lower; TR2 microbatches 2 against 1 within 1e-4 relative (float32,
+    1 layer); TR3 remat on against off, every leaf equal (the embedding's
+    within 1e-5 of its largest magnitude); TR4 ``save_async`` of the whole
+    state beside the next step and ``restore`` onto the card, every leaf
+    equal and the data replayed; TR5 no kernel launched and no JAX loaded.
+    Printed: step time, tokens/s, the AdamW update alone, peak memory, the
+    checkpoint's GB and seconds.  TR reaches no kernel of ``csrc/``.
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON (the
@@ -145,6 +159,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2348,6 +2363,282 @@ def phase_fam(torch, kern_fused) -> int:
     return launches
 
 
+TR_BATCH, TR_MICRO = 2, 2     # train_4k's global batch cut 256 -> 2
+TR_STEPS = 4                   # TR1's steps (a fifth repeats step 4's batch)
+TR_LR, TR_WARMUP, TR_TOTAL = 3e-4, 2, 8
+TR2_RTOL = 1e-4                # microbatches 2 against 1, float32
+TR_EMBED_REL = 1e-5            # TR3's hold on the embedding's leaves
+
+
+def tr_leaves(state) -> dict:
+    """name -> tensor of a ``TrainState`` (the checkpoint's leaf names)."""
+    from repro_torch.pytree import flatten_with_path
+
+    return dict(flatten_with_path(state))
+
+
+def tr_step_fn(cfg, microbatches: int):
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    return TS.train_step_fn(
+        cfg, microbatches=microbatches, max_grad_norm=1.0, weight_decay=0.1,
+        lr_schedule=adamw.cosine_schedule(TR_LR, TR_WARMUP, TR_TOTAL))
+
+
+def tr2_microbatches(torch, base, shape) -> None:
+    """TR2: from one state and batch, microbatches 2 against 1 in float32
+    at 1 layer (bf16's rounding kept out): loss and grad norm within
+    ``TR2_RTOL`` relative."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.train import step as TS
+
+    cfg = dataclasses.replace(base, n_layers=1, dtype="float32")
+    state = TS.make_train_state(cfg, SEED, device=DEVICE)
+    batch = SyntheticLM(cfg, shape.seq_len, TR_BATCH, seed=0,
+                        device=DEVICE).batch(0)
+    out = {}
+    for mb in (1, 2):
+        _, m = tr_step_fn(cfg, mb)(state, batch)
+        out[mb] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        torch.cuda.empty_cache()
+    rel = {k: abs(out[2][k] - out[1][k]) / abs(out[1][k])
+           for k in ("loss", "grad_norm")}
+    print(f"TR2: float32, 1 layer, batch {TR_BATCH} x {shape.seq_len}: "
+          f"microbatches 1 loss {out[1]['loss']:.7f} grad norm "
+          f"{out[1]['grad_norm']:.7f}; microbatches 2 loss "
+          f"{out[2]['loss']:.7f} grad norm {out[2]['grad_norm']:.7f}; "
+          f"relative differences {rel['loss']:.3e}, {rel['grad_norm']:.3e} "
+          f"(bound {TR2_RTOL:g})", flush=True)
+    if not all(r <= TR2_RTOL for r in rel.values()):
+        raise AssertionError("path TR: TR2 failed")
+
+
+def tr3_remat(torch, cfg, state, batch) -> None:
+    """TR3: one step with remat on against off from the same state.  The
+    embedding's leaves (its gradient comes from CUDA's indexed
+    scatter-add) within ``TR_EMBED_REL`` of their largest magnitude, every
+    other leaf ``torch.equal``; the gradients of one microbatch are also
+    compared the same way, and whether the embedding's came out equal is
+    printed."""
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.train import step as TS
+
+    def split(pairs) -> tuple:
+        embed_equal, worst, unequal = True, 0.0, []
+        for n, a, b in pairs:
+            if n.split("/")[-1] == "embed":
+                embed_equal &= torch.equal(a, b)
+                scale = float(b.abs().max()) or 1.0
+                worst = max(worst, float((a - b).abs().max()) / scale)
+            elif not torch.equal(a, b):
+                unequal.append(n)
+        return embed_equal, worst, unequal
+
+    cfg_on = dataclasses.replace(cfg, remat=True)
+    cfg_off = dataclasses.replace(cfg, remat=False)
+    mb = {k: v[:TR_BATCH // TR_MICRO] for k, v in batch.items()}
+    _, _, g_on = TS.loss_and_grads(cfg_on, state.params, mb)
+    _, _, g_off = TS.loss_and_grads(cfg_off, state.params, mb)
+    g_eq, g_worst, g_bad = split(
+        (n, a, b) for (n, a), (_, b) in zip(flatten_with_path(g_on),
+                                            flatten_with_path(g_off)))
+    del g_on, g_off
+    torch.cuda.empty_cache()
+    on, m_on = tr_step_fn(cfg_on, TR_MICRO)(state, batch)
+    torch.cuda.empty_cache()
+    off, m_off = tr_step_fn(cfg_off, TR_MICRO)(state, batch)
+    off = tr_leaves(off)
+    s_eq, s_worst, s_bad = split((n, t, off[n])
+                                 for n, t in tr_leaves(on).items())
+    metrics_equal = all(torch.equal(m_on[k], m_off[k])
+                        for k in ("loss", "grad_norm"))
+    print(f"TR3: remat on vs off from step {int(state.step)}'s state: "
+          f"gradients of one microbatch equal but the embedding's: "
+          f"{not g_bad} (embedding equal: {g_eq}, max rel diff "
+          f"{g_worst:.3e}); after the step, loss and grad norm equal: "
+          f"{metrics_equal}; params, mu and nu equal but the embedding's: "
+          f"{not s_bad} (embedding equal: {s_eq}, max rel diff "
+          f"{s_worst:.3e}; bound {TR_EMBED_REL:g})", flush=True)
+    if g_bad or s_bad or max(g_worst, s_worst) > TR_EMBED_REL:
+        raise AssertionError(f"path TR: TR3 failed: {g_bad or s_bad}")
+
+
+def tr4_checkpoint(torch, step, state, ds, k: int) -> tuple:
+    """TR4: ``save_async`` of the whole state while the next step runs,
+    then ``restore`` onto the card: every leaf, the step and ``extra``
+    equal, and the data pipeline rebuilt from ``extra`` replays step
+    ``k``'s batch.  Writes under the checkout's ``build/`` (checked for
+    twice the state's size first) and deletes it after.  Returns (state
+    after step k, GB, save s, restore s)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.synthetic import SyntheticLM
+
+    leaves = tr_leaves(state)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck_dir = tempfile.mkdtemp(prefix="tr_ckpt_", dir=ROOT / "build")
+    try:
+        free = shutil.disk_usage(ck_dir).free
+        if free < 2 * n_bytes:
+            raise AssertionError(
+                f"path TR: TR4 needs {2 * n_bytes / 1e9:.1f} GB free under "
+                f"{ck_dir} for a {n_bytes / 1e9:.2f} GB checkpoint; "
+                f"{free / 1e9:.1f} GB are free")
+        mgr = CheckpointManager(ck_dir, keep_last=1)
+        extra = {"data": ds.state(k)}
+        before = ds.batch(k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save_async(k, state, extra=extra)
+        t_copy = time.perf_counter() - t0
+        nxt, _ = step(state, before)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0 - t_copy
+        mgr.wait()
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, got_step, got_extra = mgr.restore(state, device=DEVICE)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        restored = tr_leaves(back)
+        bad = [n for n, t in leaves.items()
+               if restored[n].device.type != torch.device(DEVICE).type
+               or not torch.equal(restored[n], t)]
+        d = got_extra["data"]
+        replay = SyntheticLM(ds.cfg, ds.seq_len, ds.global_batch,
+                             seed=d["seed"], mode=d["mode"],
+                             device=DEVICE).batch(d["step"])
+        replay_ok = all(torch.equal(replay[n], before[n]) for n in before)
+        print(f"TR4: {len(leaves)} leaves, {n_bytes / 1e9:.3f} GB; "
+              f"save_async: host copy {t_copy:.2f} s, the next step beside "
+              f"the writer {t_step:.2f} s, written in {t_save:.2f} s; "
+              f"restored onto {DEVICE} in {t_restore:.2f} s; every leaf "
+              f"equal: {not bad}; step {got_step} and extra equal: "
+              f"{got_step == k and got_extra == extra}; ds.batch({k}) "
+              f"replayed equal: {replay_ok}", flush=True)
+        if bad or got_step != k or got_extra != extra or not replay_ok:
+            raise AssertionError(f"path TR: TR4 failed {bad[:4]}")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    return nxt, n_bytes / 1e9, t_save, t_restore
+
+
+def path_tr(torch, args, kern_fused) -> dict:
+    """Path TR: training qwen1.5-4b at its published width (d 2560, vocab
+    151936), weights from a seed, depth cut to ``--layers``, bf16
+    activations over fp32 master parameters, remat on (the config's),
+    ``SHAPES["train_4k"]``'s 4096 positions with the global batch cut from
+    256 to 2 in 2 microbatches, ``cosine_schedule(3e-4, 2, 8)``, clip 1.0,
+    weight decay 0.1, ``SyntheticLM(mode="lm", seed=0)``; each step
+    through ``resilient_step`` and a ``StragglerMonitor``, as
+    ``examples/train_lm.py`` drives them.  Gates, each raising on failure:
+    TR1. four steps with finite losses and grad norms; a fifth on step 4's
+         batch gives a loss below step 4's + 1e-3;
+    TR2. microbatches 2 against 1 (``tr2_microbatches``);
+    TR3. remat on against off (``tr3_remat``);
+    TR4. an asynchronous checkpoint round trip (``tr4_checkpoint``);
+    TR5. no kernel of ``csrc/`` launches in TR, and no JAX is loaded.
+    Printed: step time (median of steps 2-4, each timed to a
+    synchronize), tokens/s, the AdamW update alone, peak memory, the
+    checkpoint's GB and seconds, stragglers flagged."""
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import StragglerMonitor, resilient_step
+    from repro_torch.train import step as TS
+
+    t_tr = time.perf_counter()
+    kern_fused.reset_launch_counts()
+    shape = SHAPES["train_4k"]
+    base = get_config("qwen1.5-4b")
+    cfg = dataclasses.replace(base, n_layers=args.layers)
+    print(f"path TR: {cfg.name} at published width d={cfg.d_model} "
+          f"vocab={cfg.vocab} dtype={cfg.dtype} remat={cfg.remat}; depth "
+          f"cut to {cfg.n_layers} of {base.n_layers} layers; "
+          f"{shape.name}'s {shape.seq_len} positions, global batch "
+          f"{shape.global_batch} cut to {TR_BATCH} in {TR_MICRO} "
+          f"microbatches; weights from seed {SEED}", flush=True)
+    torch.cuda.empty_cache()
+    tr2_microbatches(torch, base, shape)
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.make_train_state(cfg, SEED, device=DEVICE)
+    n_params = sum(t.numel() for t in tr_leaves(state.params).values())
+    ds = SyntheticLM(cfg, shape.seq_len, TR_BATCH, seed=0, mode="lm",
+                     device=DEVICE)
+    step = tr_step_fn(cfg, TR_MICRO)
+    mon = StragglerMonitor()
+    metrics, times = [], []
+    for i in range(TR_STEPS + 1):
+        k = min(i, TR_STEPS - 1)           # the fifth repeats step 4's batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = resilient_step(step, state, ds.batch(k))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        mon.record(dt)
+        metrics.append({n: float(v) for n, v in m.items()})
+        times.append(dt)
+        print(f"TR step {i + 1} (batch {k}): loss {metrics[-1]['loss']:.5f} "
+              f"grad norm {metrics[-1]['grad_norm']:.5f} lr "
+              f"{metrics[-1]['lr']:.3e} in {dt:.3f} s", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                 for m in metrics)
+    l4, l5 = metrics[TR_STEPS - 1]["loss"], metrics[TR_STEPS]["loss"]
+    print(f"TR1: losses and grad norms finite: {finite}; step 5 on step 4's "
+          f"batch: loss {l5:.5f} < {l4:.5f} + 1e-3: {l5 < l4 + 1e-3}",
+          flush=True)
+    if not finite or not l5 < l4 + 1e-3:
+        raise AssertionError("path TR: TR1 failed")
+    step_s = sorted(times[1:TR_STEPS])[1]
+    tokens = TR_BATCH * shape.seq_len
+
+    # the AdamW update alone (the moments stand in for the gradients)
+    upd = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = adamw.update(state.opt.mu, state.opt, state.params, lr=1e-4)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - t0)
+        del out
+    update_s = sorted(upd)[1]
+    torch.cuda.empty_cache()
+
+    tr3_remat(torch, cfg, state, ds.batch(TR_STEPS))
+    torch.cuda.empty_cache()
+    state, ck_gb, save_s, restore_s = tr4_checkpoint(
+        torch, step, state, ds, TR_STEPS + 1)
+    del state
+    torch.cuda.empty_cache()
+
+    moved = {n: c for n, c in kern_fused.LAUNCHES.items() if c}
+    jax_loaded = sorted(n for n in sys.modules
+                        if n == "jax" or n.startswith("jax."))
+    print(f"TR5: kernel launches in TR: {moved or 'none'}; JAX modules "
+          f"loaded: {jax_loaded or 'none'}", flush=True)
+    if moved or jax_loaded:
+        raise AssertionError("path TR: TR5 failed")
+    print(f"path TR ({n_params / 1e9:.4f} G parameters, {cfg.n_layers} "
+          f"layers, {tokens} tokens a step): step {step_s:.3f} s (median of "
+          f"steps 2-{TR_STEPS}), {tokens / step_s:.0f} tokens/s; AdamW "
+          f"update {update_s * 1e3:.1f} ms; peak memory {peak:.2f} GiB; "
+          f"checkpoint {ck_gb:.3f} GB saved in {save_s:.2f} s, restored in "
+          f"{restore_s:.2f} s; stragglers flagged {len(mon.flagged)}; path "
+          f"TR in {time.perf_counter() - t_tr:.1f} s", flush=True)
+    return {"step_s": step_s, "tokens_s": tokens / step_s,
+            "update_s": update_s, "peak": peak, "ck_gb": ck_gb,
+            "save_s": save_s, "restore_s": restore_s,
+            "stragglers": len(mon.flagged)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -2463,6 +2754,12 @@ def main() -> int:
           f"{4 / rw['step_s']:.1f} tokens/s on {card}; B1 launches "
           f"{rw_launches}", flush=True)
     fam_launches = phase_fam(torch, kern_fused)
+    tr = path_tr(torch, args, kern_fused)
+    print(f"path TR step: {tr['step_s']:.3f} s, {tr['tokens_s']:.0f} "
+          f"tokens/s, AdamW update {tr['update_s'] * 1e3:.1f} ms, peak "
+          f"{tr['peak']:.2f} GiB, checkpoint {tr['ck_gb']:.3f} GB saved in "
+          f"{tr['save_s']:.2f} s and restored in {tr['restore_s']:.2f} s, "
+          f"stragglers flagged {tr['stragglers']} on {card}", flush=True)
 
     kernels = [
         {"name": "fused_mvm", "route": "cuda",

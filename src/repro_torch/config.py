@@ -4,6 +4,8 @@ One dataclass covers all ten assigned architectures; family-specific fields
 are ignored by families that do not use them.  Every arch file in
 ``repro_torch.configs`` exports ``CONFIG`` (the exact published shape) and
 ``smoke_config()`` (a reduced same-family shape for CPU tests).
+``ShapeConfig``/``SHAPES`` are the assigned input-shape cells (sequence
+length, global batch, kind), the reference's field for field.
 """
 
 from __future__ import annotations
@@ -105,3 +107,21 @@ class ModelConfig:
             per_layer += 3 * d * self.d_ff
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return int(self.n_layers * per_layer + emb)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -14,6 +14,8 @@ the reference.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -22,7 +24,7 @@ from repro_torch.core.errors import generator
 from repro_torch.models.attention import (attention_block,
                                           cross_attention_block,
                                           encode_cross_kv, init_attention)
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import norm, remat_call
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.transformer import (_layer, _norm_init, _tokens,
                                             compute_dtype)
@@ -69,23 +71,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     }
 
 
-def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
-           ) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, n_frames, d) stub embeddings in ``cfg.dtype`` -> the
-    encoder's states."""
+    encoder's states.  ``remat`` checkpoints each layer."""
     _, s, d = frames.shape
     dt = frames.dtype
     x = frames @ params["enc_in"].to(dt) \
         + _sinusoid(s, d, frames.device)[None].to(dt)
     positions = torch.arange(s, device=x.device)
-    for i in range(cfg.n_enc_layers):
-        p_l = _layer(params["encoder"], i)
+
+    def layer(p_l, x):
         h, _ = attention_block(p_l["attn"], norm(x, p_l["norm1"], cfg.norm),
                                cfg, positions=positions, window=None,
                                causal=False)
         x = x + h
-        x = x + mlp_block(p_l["mlp"], norm(x, p_l["norm2"], cfg.norm),
-                          cfg.act)
+        return x + mlp_block(p_l["mlp"], norm(x, p_l["norm2"], cfg.norm),
+                             cfg.act)
+
+    for i in range(cfg.n_enc_layers):
+        x = remat_call(remat, layer, _layer(params["encoder"], i), x)
     return norm(x, params["enc_final_norm"], cfg.norm)
 
 
@@ -100,12 +105,12 @@ def _stack_cross_kv(cfg: ModelConfig, params: dict, enc: torch.Tensor):
 
 
 def _decoder(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions,
-             cross_kv, cache, cache_len):
+             cross_kv, cache, cache_len, remat: bool = False):
     """All decoder layers: (x, self-attention K/V).  With ``cache`` the
-    K/V are written into it in place and it comes back."""
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p_l = _layer(params["decoder"], i)
+    K/V are written into it in place and it comes back.  ``remat``
+    checkpoints each layer."""
+
+    def layer(i, p_l, ck, cv, x):
         h, new_kv = attention_block(
             p_l["attn"], norm(x, p_l["norm1"], cfg.norm), cfg,
             positions=positions, window=None,
@@ -113,10 +118,16 @@ def _decoder(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions,
             cache_len=cache_len)
         x = x + h
         x = x + cross_attention_block(
-            p_l["xattn"], norm(x, p_l["normx"], cfg.norm),
-            (cross_kv[0][i], cross_kv[1][i]), cfg)
+            p_l["xattn"], norm(x, p_l["normx"], cfg.norm), (ck, cv), cfg)
         x = x + mlp_block(p_l["mlp"], norm(x, p_l["norm2"], cfg.norm),
                           cfg.act)
+        return x, new_kv
+
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, new_kv = remat_call(remat, functools.partial(layer, i),
+                               _layer(params["decoder"], i),
+                               cross_kv[0][i], cross_kv[1][i], x)
         ks.append(new_kv["k"])
         vs.append(new_kv["v"])
     if cache is not None:
@@ -129,12 +140,13 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return (x @ params["embed"].T.to(x.dtype)).to(torch.float32)
 
 
-def _prompt(cfg, params, tokens, frames):
+def _prompt(cfg, params, tokens, frames, remat: bool = False):
     """(decoder input embeddings, cross K/V) of a prompt and its frames."""
     dt = compute_dtype(cfg)
     tokens = _tokens(params, tokens)
     frames = torch.as_tensor(frames, device=tokens.device).to(dt)
-    cross_kv = _stack_cross_kv(cfg, params, encode(cfg, params, frames))
+    cross_kv = _stack_cross_kv(cfg, params,
+                               encode(cfg, params, frames, remat=remat))
     s = tokens.shape[1]
     x = params["embed"][tokens].to(dt) \
         + _sinusoid(s, cfg.d_model, tokens.device)[None].to(dt)
@@ -142,14 +154,17 @@ def _prompt(cfg, params, tokens, frames):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *, frames=None,
-            pack=None, prefix_embeds=None):
+            pack=None, prefix_embeds=None, remat=None):
     """Teacher-forced forward: (float32 logits, {}).  ``frames`` defaults
-    to ``prefix_embeds`` (the generic frontend-stub argument)."""
+    to ``prefix_embeds`` (the generic frontend-stub argument).  ``remat``
+    (default ``cfg.remat``) checkpoints each encoder and decoder layer
+    while a gradient is recorded; the values do not change."""
     frames = frames if frames is not None else prefix_embeds
-    x, cross_kv = _prompt(cfg, params, tokens, frames)
+    remat = cfg.remat if remat is None else remat
+    x, cross_kv = _prompt(cfg, params, tokens, frames, remat)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _decoder(cfg, params, x, positions=positions, cross_kv=cross_kv,
-                    cache=None, cache_len=None)
+                    cache=None, cache_len=None, remat=remat)
     return _logits(cfg, params, x), {}
 
 

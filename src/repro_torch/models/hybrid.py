@@ -16,6 +16,7 @@ reference.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -24,7 +25,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.errors import generator
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_block, init_attention
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import norm, remat_call
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.transformer import (_head, _layer, _norm_init,
                                             _tokens, compute_dtype)
@@ -76,23 +77,31 @@ def _shared_attn(cfg, sp, x, *, positions, kv_cache, cache_len):
 
 
 def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions,
-         state: Optional[dict], kv: Optional[dict], cache_len):
+         state: Optional[dict], kv: Optional[dict], cache_len,
+         remat: bool = False):
     """All layers; returns (x, the stacked Mamba states).  The shared
-    block's KV caches (``kv``) are written in place."""
+    block's KV caches (``kv``) are written in place.  ``remat``
+    checkpoints each layer, the shared block ahead of it included (the
+    reference's scan body)."""
     decode = x.shape[1] == 1 and cache_len is not None
-    apps = set(attn_positions(cfg))
-    states, app = [], 0
-    for i in range(cfg.n_layers):
+    apps = attn_positions(cfg)
+
+    def layer(i, p_l, shared, x):
         if i in apps:
-            kv_l = None if kv is None else _layer(kv, app)
-            x, _ = _shared_attn(cfg, params["shared"], x, positions=positions,
-                                kv_cache=kv_l, cache_len=cache_len)
-            app += 1
+            app = apps.index(i)
+            x, _ = _shared_attn(cfg, shared, x, positions=positions,
+                                kv_cache=None if kv is None
+                                else _layer(kv, app), cache_len=cache_len)
         h, new_state = ssm_mod.mamba_block(
-            _layer(params["layers"]["mamba"], i),
-            norm(x, _layer(params["layers"]["norm"], i), cfg.norm), cfg,
+            p_l["mamba"], norm(x, p_l["norm"], cfg.norm), cfg,
             state=None if state is None else _layer(state, i), decode=decode)
-        x = x + h
+        return x + h, new_state
+
+    states = []
+    for i in range(cfg.n_layers):
+        x, new_state = remat_call(remat, functools.partial(layer, i),
+                                  _layer(params["layers"], i),
+                                  params["shared"], x)
         states.append(new_state)
     return x, {n: torch.stack([s[n] for s in states]) for n in states[0]}
 
@@ -102,12 +111,14 @@ def _embed(cfg: ModelConfig, params: dict, tokens) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *, pack=None,
-            prefix_embeds=None):
-    """Training/eval forward: returns (float32 logits, {})."""
+            prefix_embeds=None, remat: Optional[bool] = None):
+    """Training/eval forward: returns (float32 logits, {}).  ``remat``
+    (default ``cfg.remat``) checkpoints each layer while a gradient is
+    recorded; the values do not change."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run(cfg, params, x, positions=positions, state=None, kv=None,
-                cache_len=None)
+                cache_len=None, remat=cfg.remat if remat is None else remat)
     return _head(cfg, params, x, None), {}
 
 

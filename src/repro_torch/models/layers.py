@@ -15,10 +15,12 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.analog import AnalogWeights, analog_matmul
 from repro_torch.core.quant import calibrate_act_range
 from repro_torch.hw.profile import SiteSpecs
+from repro_torch.pytree import leaves
 
 NEG_INF = -1e30
 
@@ -66,6 +68,20 @@ def dense(x: torch.Tensor, w: torch.Tensor, name: str,
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; under ``remat``, while autograd records a gradient
+    through ``args``, as one activation checkpoint (non-reentrant
+    ``torch.utils.checkpoint``: the call's saved tensors are dropped and
+    recomputed in the backward), the counterpart of the reference's
+    ``jax.checkpoint`` of a layer's scan body.  The values are the same
+    either way."""
+    if remat and torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in leaves(args)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

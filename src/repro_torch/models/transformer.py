@@ -26,6 +26,7 @@ the first P token embeddings.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -37,7 +38,7 @@ from repro_torch.core.errors import generator
 from repro_torch.hw.profile import Profile, SiteSpecs
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_block, init_attention
-from repro_torch.models.layers import AnalogCtx, norm
+from repro_torch.models.layers import AnalogCtx, norm, remat_call
 from repro_torch.models.mlp import init_mlp, init_moe, mlp_block, moe_block
 
 GLOBAL_WINDOW = 1 << 30
@@ -226,23 +227,26 @@ def _stack_aux(auxes: List[dict]) -> Dict[str, torch.Tensor]:
 def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                 positions, cache: Optional[dict], cache_len,
                 pack: Optional[AnalogPack], attn_backend: str = "stream",
-                paged: Optional[dict] = None):
+                paged: Optional[dict] = None, remat: bool = False):
     """All layers, band by band; returns (x, cache, aux).  With ``paged``
     ({"ptab", "backend"}), ``cache`` is the page pool.  Attention caches
-    are written in place; rwkv states come back as new stacks."""
+    are written in place; rwkv states come back as new stacks.  ``remat``
+    checkpoints each layer (``layers.remat_call``)."""
     windows = layer_windows(cfg)
     bands = pack.bands if pack is not None else ((0, cfg.n_layers),)
     group = "rwkv" if cfg.rwkv else "attn"
     news, auxes = [], []
     for band, (lo_b, hi_b) in enumerate(bands):
         for i in range(lo_b, hi_b):
-            cache_l = None if cache is None else _layer(cache[group], i)
-            x, new_l, aux = _block(
-                cfg, _layer(params["layers"], i), x, positions=positions,
+            block = functools.partial(
+                _block, cfg, positions=positions,
                 window=None if windows is None else windows[i],
-                cache_l=cache_l, cache_len=cache_len,
+                cache_l=None if cache is None else _layer(cache[group], i),
+                cache_len=cache_len,
                 actx=None if pack is None else _make_actx(pack, i, band),
                 attn_backend=attn_backend, paged=paged)
+            x, new_l, aux = remat_call(remat, block,
+                                       _layer(params["layers"], i), x)
             news.append(new_l)
             auxes.append(aux)
     if cache is None or cfg.rwkv:
@@ -261,14 +265,17 @@ def _tokens(params: dict, tokens) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *,
-            prefix_embeds=None,
-            pack: Optional[AnalogPack] = None) -> Tuple[torch.Tensor, dict]:
-    """Training/eval forward: returns (float32 logits, aux)."""
+            prefix_embeds=None, pack: Optional[AnalogPack] = None,
+            remat: Optional[bool] = None) -> Tuple[torch.Tensor, dict]:
+    """Training/eval forward: returns (float32 logits, aux).  ``remat``
+    (default ``cfg.remat``) checkpoints each layer while a gradient is
+    recorded; the values do not change."""
     tokens = _tokens(params, tokens)
     x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)
     x, _, aux = _run_layers(cfg, params, x, positions=positions, cache=None,
-                            cache_len=None, pack=pack)
+                            cache_len=None, pack=pack,
+                            remat=cfg.remat if remat is None else remat)
     if pack is not None and pack.collect:
         aux["final_hidden"] = norm(x, params["final_norm"], cfg.norm)
     return _head(cfg, params, x, pack), aux

@@ -52,6 +52,9 @@ The other families on the card: the fused MVM kernel equals its plain
 version at rwkv6-3b's channel-mix shapes (N = 8960 and K = 8960, 4 and
 128 rows); the MoE block gives the same bits on every run; the rwkv, MoE
 and vlm smoke configs served on the kernel give the plain route's tokens.
+
+Training data on the card: a ``SyntheticLM`` batch asked for the card
+equals the CPU one's bits.
 """
 
 import dataclasses
@@ -1101,3 +1104,22 @@ def test_family_serves_through_kernel_as_plain_route(cuda_device, arch):
             for ss in pack.band_specs),
         head_spec=dataclasses.replace(pack.head_spec, fused="oracle"))
     assert torch.equal(toks, decode_lm(cfg, params, prompts, 6, pack=plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lm", "uniform"])
+def test_synthetic_batches_equal_on_cpu_and_card(cuda_device, mode):
+    """``SyntheticLM`` draws on the CPU and moves the batch: a dataset asked
+    for the card gives a CPU one's bits, prefix embeddings included."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import SyntheticLM
+
+    cfg = get_smoke_config("internvl2-26b")
+    on_cpu = SyntheticLM(cfg, 32, 4, seed=3, mode=mode, device="cpu")
+    on_card = SyntheticLM(cfg, 32, 4, seed=3, mode=mode)
+    for step in (0, 7, 123):
+        a, b = on_cpu.batch(step), on_card.batch(step)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert b[k].device.type == "cuda"
+            assert torch.equal(a[k], b[k].cpu()), (step, k)
