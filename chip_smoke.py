@@ -77,6 +77,22 @@ lines:
    the bit) on ``tolerance.BITSERIAL_GRID`` and at those four sites, and
    timed there on the device alone (a CUDA graph of ten launches, as is
    its ``torch.matmul`` yardstick) beside the wrapper's time per call;
+7a. phase AN — the static analyzer and its contracts
+   (``repro_torch.analysis``) on the main path's full-width pack: AN1 the
+   lint of ``src/repro_torch`` (Python and ``csrc``) and the five static
+   contracts, zero findings; AN2 ``serve/decode-launches-fixed`` through
+   ``ServeRuntime(attn_backend="flash")`` over the reference's ragged
+   trace (9 requests, 3 slots, max_len 32), every decode step exactly
+   7·L+1 B1 and L B2; AN3 ``serve/paged-decode-launches-fixed`` and
+   ``serve/paged-prefill-group-launches`` through ``PagedServeRuntime``
+   (page 4, 14 pages), every step 7·L+1 B1 and L B3, each prefill group
+   key one multiset, prefix hits and evictions above 0; AN4
+   ``serve/fused-signature-per-site-class``, the launched signatures equal
+   to ``hw.fused_site_classes``; AN5 no ``nvcc`` run during AN; AN6 the
+   two sweep contracts on the classifier vehicle.  Printed, not gated:
+   the synchronizing calls per decode step
+   (``torch.cuda.set_sync_debug_mode("warn")`` over AN2's serve) and
+   their sites.  AN's launches are added to B1's, B2's and B3's entries;
 8. path PD — drift, stuck-cell faults and self-healing on the main path's
    params, requests and calibration tokens, under benchmarks/driftbench.py's
    spec on the kernel route (``PackManager``; ``ServeRuntime(attn_backend=
@@ -957,6 +973,163 @@ def check_bitserial_grid(torch, ops, tol) -> float:
         worst = max(worst, r["max_abs_err"])
     torch.cuda.synchronize()
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase AN: the static analyzer and its contracts
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def counting_syncs(caught: list, by_method):
+    """Count the warnings ``caught`` gains inside each of ``ServeRuntime``'s
+    ``_run_decode``, ``_collect`` and ``_prefill_group`` (by method name)."""
+    from repro_torch.serve import ServeRuntime
+
+    saved = {}
+
+    def counted(name, fn):
+        def wrapper(self, *a, **kw):
+            n0 = len(caught)
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                by_method[name] += len(caught) - n0
+        return wrapper
+
+    for name in ("_run_decode", "_collect", "_prefill_group"):
+        saved[name] = ServeRuntime.__dict__[name]
+        setattr(ServeRuntime, name, counted(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ServeRuntime, name, fn)
+
+
+def phase_an(torch, cfg, params, pack, kern_fused) -> dict:
+    """Phase AN (module docstring, 7a): the lint, the static contracts and
+    the launch contracts on the main path's full-width pack.  Returns the
+    launches of AN's serves by kernel."""
+    import collections
+    import warnings
+
+    from repro_torch.analysis import (analyze_paths, check_contract,
+                                      check_contracts, render, rule_ids)
+    from repro_torch.analysis import repo_contracts as R
+    from repro_torch.analysis.contracts import compile_counter
+    from repro_torch.hw import fused_site_classes
+    from repro_torch.serve.analog_engine import lm_hook_names
+
+    t_an = time.perf_counter()
+    layers = cfg.n_layers
+    vehicle = (cfg, params, pack)
+    with compile_counter() as builds:
+        t = time.perf_counter()
+        findings = analyze_paths([str(ROOT / "src" / "repro_torch")])
+        n_py = sum(1 for _ in (ROOT / "src" / "repro_torch").rglob("*.py"))
+        n_cu = sum(1 for _ in (ROOT / "src" / "repro_torch").rglob("*.cu*"))
+        statics = R.static_contracts()
+        findings += check_contracts(statics, "static")
+        per_rule = collections.Counter(f.rule for f in findings)
+        per_rule = {r: per_rule[r] for r in rule_ids() + ["compile-contract"]}
+        print(f"AN1 lint of src/repro_torch ({n_py} Python files, {n_cu} "
+              f"CUDA sources) and {len(statics)} static contracts: "
+              f"{len(findings)} findings {per_rule} in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        if findings:
+            raise AssertionError("AN1: the analyzer is not clean:\n"
+                                 + render(findings))
+
+        want = {"fused_mvm": 7 * layers + 1, "flash_decode": layers}
+        expect = R.expected_step_launches(cfg, pack, "flash_decode")
+        if expect != want:
+            raise AssertionError(f"AN2: the pack predicts {expect} launches "
+                                 f"a step, not {want}")
+        kern_fused.reset_launch_counts()
+        t = time.perf_counter()
+        by_method = collections.Counter()
+        with warnings.catch_warnings(record=True) as caught, \
+                counting_syncs(caught, by_method):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rt, rec, built = R.serve_dense(vehicle)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t
+        launches = dict(kern_fused.LAUNCHES)
+        steps = len(rec.decode)
+        syncs = collections.Counter(
+            f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message))
+        n_sync = sum(syncs.values())
+        print(f"AN2 serve/decode-launches-fixed: {steps} decode steps and "
+              f"{sum(map(len, rec.prefill.values()))} prefills over 9 "
+              f"requests in {dense_s:.2f} s; every step {rec.decode[0]} "
+              f"(expected {want}); prefill groups {sorted(rec.prefill)}; "
+              f"synchronizing calls {n_sync} ({n_sync / max(steps, 1):.2f} "
+              f"per decode step): {by_method['_run_decode']} inside the "
+              f"decode steps, {by_method['_collect']} in _collect, "
+              f"{by_method['_prefill_group']} in prefills; sites "
+              f"{dict(syncs)}", flush=True)
+        bad = rec.decode_violations("AN2", want) \
+            + rec.prefill_violations("AN2")
+        if bad:
+            raise AssertionError("; ".join(bad))
+
+        expected_sigs = set(fused_site_classes(
+            pack.profile, lm_hook_names(cfg), layers))
+        print(f"AN4 serve/fused-signature-per-site-class: launched "
+              f"{sorted(built, key=repr)}, hw.fused_site_classes "
+              f"{sorted(expected_sigs, key=repr)}", flush=True)
+        if built != expected_sigs or not built:
+            raise AssertionError("AN4: launched signatures differ from "
+                                 "fused_site_classes")
+
+        before = dict(kern_fused.LAUNCHES)
+        t = time.perf_counter()
+        prt, prec = R.serve_paged(vehicle)
+        torch.cuda.synchronize()
+        paged_s = time.perf_counter() - t
+        for k, v in kern_fused.LAUNCHES.items():
+            launches[k] += v - before[k]
+        pwant = {"fused_mvm": 7 * layers + 1, "paged_attention": layers}
+        st = prt.stats
+        print(f"AN3 serve/paged-decode-launches-fixed and "
+              f"serve/paged-prefill-group-launches: {len(prec.decode)} "
+              f"decode steps in {paged_s:.2f} s, every step "
+              f"{prec.decode[0]} (expected {pwant}); prefill groups "
+              f"{ {k: len(v) for k, v in sorted(prec.prefill.items())} }; "
+              f"prefix hits {st['prefix_hits']}, evictions "
+              f"{st['cache_evictions']}", flush=True)
+        bad = prec.decode_violations("AN3", pwant) \
+            + prec.prefill_violations("AN3")
+        if st["prefix_hits"] <= 0 or st["cache_evictions"] <= 0:
+            bad.append("AN3: no prefix hit or no eviction")
+        if bad:
+            raise AssertionError("; ".join(bad))
+
+        t = time.perf_counter()
+        sweep_findings = []
+        for c in (R.alpha_grid_contract(DEVICE),
+                  R.traced_fields_contract(DEVICE)):
+            sweep_findings += check_contract(c, "trace")
+        print(f"AN6 sweep/alpha-axis-programs-once and "
+              f"sweep/dynamic-fields-flow-from-row on the card: "
+              f"{len(sweep_findings)} findings in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        if sweep_findings:
+            raise AssertionError(render(sweep_findings))
+    print(f"AN5 nvcc runs during AN: {builds.count}", flush=True)
+    if builds.count:
+        raise AssertionError("AN5: phase AN built a kernel")
+    print(f"phase AN in {time.perf_counter() - t_an:.1f} s; launches "
+          f"fused_mvm={launches['fused_mvm']} flash_decode="
+          f"{launches['flash_decode']} paged_attention="
+          f"{launches['paged_attention']}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2732,6 +2905,7 @@ def main() -> int:
     bs = bitserial_full_width(torch, ops, tol, cfg, pack, kern_fused)
     print(f"Design D at four full-width sites in {time.perf_counter() - t:.1f}"
           f" s", flush=True)
+    an = phase_an(torch, cfg, params, pack, kern_fused)
     del pack
     torch.cuda.empty_cache()
     pd_counts, pd = path_pd(torch, cfg, params, reqs, calib, kern_fused)
@@ -2766,7 +2940,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/fused_mvm.cu",
          "replaces": FUSED_REPLACES,
          "launches": counts["fused_mvm"] + sw_counts["fused_mvm"]
-         + rw_launches + fam_launches,
+         + rw_launches + fam_launches + an["fused_mvm"],
          "max_abs_err": max(fm["max_abs_err"], grid["max_abs_err"],
                             rw["max_abs_err"]),
          "ms": fm["ms"], "plain_ms": fm["plain_ms"],
@@ -2774,14 +2948,16 @@ def main() -> int:
          "library_ms": fm["library_ms"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-         "replaces": FLASH_REPLACES, "launches": counts["flash_decode"],
+         "replaces": FLASH_REPLACES,
+         "launches": counts["flash_decode"] + an["flash_decode"],
          "max_abs_err": max(fl["max_abs_err"], edge), "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
          "shapes": fl["shapes"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-         "replaces": PAGED_REPLACES, "launches": pg_counts["paged_attention"],
+         "replaces": PAGED_REPLACES,
+         "launches": pg_counts["paged_attention"] + an["paged_attention"],
          "max_abs_err": max(pa["max_abs_err"], edge), "ms": pa["ms"],
          "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
          "bound_by": pa["bound_by"], "library_ms": pa["library_ms"],

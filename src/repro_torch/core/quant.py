@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,15 @@ def true_div(x: torch.Tensor, d) -> torch.Tensor:
     multiplication by its rounded reciprocal, which can land an ulp away
     from the reference's division; dividing by a tensor does not."""
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def div_as_compiled(x: torch.Tensor, d) -> torch.Tensor:
+    """``x / d`` for a Python number ``d`` as XLA compiles a division by a
+    constant: a multiply by the float32 reciprocal of ``d``, rounded once on
+    the host.  This is what the reference's jitted ``x / d`` computes, on
+    every device; an IEEE division (:func:`true_div`, or the CPU's ``x /
+    d``) can land an ulp away from it."""
+    return x * float(np.float32(1.0) / np.float32(d))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +147,9 @@ def calibrate_act_range(
     absmax = torch.clamp(flat.abs().amax(), min=1e-12)
     cands = absmax * _clip_fractions(flat.device)
     grid = 2.0 ** search_bits
-    snapped = torch.round(cands / absmax * grid) / grid * absmax
+    steps = torch.round(cands / absmax * grid)
+    # grid is 2**search_bits, so its reciprocal is exact on every device
+    snapped = steps / grid * absmax  # repro: ignore[scalar-div] a 2**k
     errs = []
     for hi in snapped:
         q = quantize_acts(flat, bits, signed=signed, clip_hi=hi)

@@ -36,6 +36,10 @@ SOURCES = ("fused_mvm", "flash_decode", "fused_mvm_parasitic", "bitline")
 #: process (``-Xptxas -v`` output), by source name
 PTXAS_REPORT: Dict[str, str] = {}
 
+#: ``nvcc`` runs started by this process: the port's "backend compiles",
+#: which ``repro_torch.analysis.contracts.compile_counter`` counts
+BUILDS = 0
+
 
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, then
@@ -62,6 +66,7 @@ def library_path(name: str) -> Path:
 def build_all(names: Optional[Iterable[str]] = None) -> float:
     """Compile every library in ``names`` (default: all) that is not built
     yet, one ``nvcc`` per source in parallel; returns the seconds spent."""
+    global BUILDS
     names = list(SOURCES if names is None else names)
     todo = [n for n in names if not library_path(n).is_file()]
     if not todo:
@@ -76,6 +81,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        BUILDS += 1
     failed = []
     for name, out, tmp, proc in jobs:
         stdout, stderr = proc.communicate()

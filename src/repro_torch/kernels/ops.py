@@ -10,11 +10,20 @@ settings; ``chip_smoke.py`` uses it to hold each kernel against its plain
 version on the card).  The reference's Mosaic tiling (``_pick_tile``'s
 128-lane rule and the lane padding) has no counterpart: the CUDA kernels
 take any M, N and head dimension, and mask their own ragged edges.
+
+Two records serve ``repro_torch.analysis``'s contracts.
+:data:`ROUTE_CALLS` counts each op's calls on each route, so a CPU run can
+count what would launch on a card (``kernels.fused.LAUNCHES`` stays 0
+there: the plain versions run).  :data:`BUILD_SIGNATURES` holds one
+static identity per fused MVM call on the kernel route, CPU or card, in
+``core.analog.fuse_signature``'s format, as the reference's
+``kernels.fused.BUILD_SIGNATURES`` does for its traced kernels.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import collections
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,15 +36,31 @@ from repro_torch.kernels import ref as _k_ref
 
 BACKENDS = ("kernel", "oracle")
 
+#: calls of each kernel's op by route in this process:
+#: ``(kernel, route)`` -> calls, the kernel named as in
+#: ``kernels.fused.LAUNCHES``; route ``"kernel"`` (launched), ``"cpu"``
+#: (the plain version standing in for the kernel on a CPU tensor) or
+#: ``"oracle"`` (the plain version asked for)
+ROUTE_CALLS: Dict[Tuple[str, str], int] = collections.Counter()
+
+#: static identities of the fused MVM calls on the kernel route:
+#: ``("linear", S, cell_bits, adc_bits, n_bits, None)`` and
+#: ``("parasitic", S, cell_bits, adc_bits, None, n_bits)``
+BUILD_SIGNATURES: set = set()
+
 
 def _check_backend(backend: str, what: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown {what} backend {backend!r}")
 
 
-def _plain(backend: str, t: torch.Tensor) -> bool:
-    """Run the plain version: asked for, or a CPU tensor."""
-    return backend == "oracle" or t.device.type == "cpu"
+def _plain(backend: str, t: torch.Tensor, kernel: str) -> bool:
+    """Run the plain version: asked for, or a CPU tensor.  Counts the call
+    in :data:`ROUTE_CALLS`."""
+    route = ("oracle" if backend == "oracle"
+             else "cpu" if t.device.type == "cpu" else "kernel")
+    ROUTE_CALLS[(kernel, route)] += 1
+    return route != "kernel"
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -58,7 +83,10 @@ def fused_mvm(
     """Fused analog MVM chain (dot + ADC + dequant + slice/bit
     shift-and-add in one launch); returns the dequantized (M, N)."""
     _check_backend(backend, "fused_mvm")
-    if _plain(backend, x_parts):
+    if backend == "kernel":
+        BUILD_SIGNATURES.add(("linear", g_pos.shape[0], cell_bits,
+                              adc_bits, n_bits, None))
+    if _plain(backend, x_parts, "fused_mvm"):
         return _k_ref.fused_mvm_diff(
             x_parts, g_pos, g_neg, adc_lo, adc_hi, scale,
             adc_bits=adc_bits, cell_bits=cell_bits, n_bits=n_bits)
@@ -95,7 +123,10 @@ def fused_mvm_parasitic(
     analog bit fold, ADC, dequant and slice shift-and-add in one launch);
     returns the dequantized (M, N)."""
     _check_backend(backend, "fused_mvm_parasitic")
-    if _plain(backend, x_parts):
+    if backend == "kernel":
+        BUILD_SIGNATURES.add(("parasitic", g_pos.shape[0], cell_bits,
+                              adc_bits, None, n_bits))
+    if _plain(backend, x_parts, "fused_mvm_parasitic"):
         return _k_ref.fused_mvm_parasitic(
             x_parts, g_pos, g_neg, r_hat, adc_lo, adc_hi, scale,
             adc_bits=adc_bits, cell_bits=cell_bits, n_bits=n_bits)
@@ -122,7 +153,7 @@ def bitline_mvm(
             raise ValueError("a zero r_hat takes one (K, N) array: the "
                              "batched form is for parasitic solves")
         return x @ g
-    if _plain(backend, g):
+    if _plain(backend, g, "bitline_mvm"):
         return _k_ref.bitline_mvm(g, x, r_hat)
     if g.ndim == 2:
         return _k_bl.bitline_mvm_cuda(_f32(g)[None], _f32(x)[None], r_hat)[0]
@@ -147,7 +178,7 @@ def analog_mvm_parasitic(
     partition sum in one launch); returns (M, N) code units."""
     _check_backend(backend, "analog_mvm_parasitic")
     g_pos, g_neg = _unsliced(g_pos, g_neg)
-    if _plain(backend, x_parts):
+    if _plain(backend, x_parts, "analog_bitline_diff"):
         return _k_ref.analog_mvm_parasitic_diff(
             x_parts, g_pos, g_neg, r_hat=r_hat, n_bits=n_bits, adc_lo=adc_lo,
             adc_hi=adc_hi, adc_bits=adc_bits, gain=gain)
@@ -171,7 +202,7 @@ def analog_mvm(
     returns (M, N) code units."""
     _check_backend(backend, "analog_mvm")
     g_pos, g_neg = _unsliced(g_pos, g_neg)
-    if _plain(backend, x_parts):
+    if _plain(backend, x_parts, "analog_mvm_diff"):
         return _k_ref.analog_mvm_diff(
             x_parts, g_pos, g_neg, adc_lo=adc_lo, adc_hi=adc_hi,
             adc_bits=adc_bits, gain=gain)
@@ -197,7 +228,7 @@ def analog_mvm_bitserial(
     code units."""
     _check_backend(backend, "analog_mvm_bitserial")
     g_pos, g_neg = _unsliced(g_pos, g_neg)
-    if _plain(backend, x_parts):
+    if _plain(backend, x_parts, "analog_mvm_bitserial"):
         return _k_ref.analog_mvm_bitserial(
             x_parts, g_pos, g_neg, n_bits=n_bits, adc_lo=adc_lo,
             adc_hi=adc_hi, adc_bits=adc_bits, gain=gain)
@@ -223,7 +254,7 @@ def paged_attention(
     0 has only masked logits and averages v over all ``NP * page_size``
     positions, as the reference does."""
     _check_backend(backend, "paged_attention")
-    if _plain(backend, q):
+    if _plain(backend, q, "paged_attention"):
         out = _k_ref.paged_attention_decode(q, k_pages, v_pages, ptab, kv_len)
     else:
         out = _k_paged.paged_attention_cuda(q, k_pages, v_pages, ptab, kv_len)
@@ -244,7 +275,7 @@ def flash_attention_decode(
     has only masked logits and averages v over the cache zero-padded to
     the reference's 8-position blocks, as the reference does."""
     _check_backend(backend, "flash_attention_decode")
-    if _plain(backend, q):
+    if _plain(backend, q, "flash_decode"):
         out = _k_ref.flash_attention_decode(q, k, v, kv_len)
     else:
         out = _k_fused.flash_decode_cuda(q, k, v, kv_len)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.errors import generator
+from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.attention import (attention_block,
                                           cross_attention_block,
                                           encode_cross_kv, init_attention)
@@ -33,7 +34,8 @@ from repro_torch.models.transformer import (_layer, _norm_init, _tokens,
 def _sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
     """Rows ``pos`` of the sinusoidal table, float32 (len(pos), d)."""
     dim = torch.arange(d // 2, device=pos.device).to(torch.float32)[None, :]
-    ang = pos.to(torch.float32)[:, None] / (10000.0 ** (2 * dim / d))
+    ang = pos.to(torch.float32)[:, None] / (
+        10000.0 ** div_as_compiled(2 * dim, d))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

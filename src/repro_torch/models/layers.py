@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.analog import AnalogWeights, analog_matmul
-from repro_torch.core.quant import calibrate_act_range
+from repro_torch.core.quant import calibrate_act_range, div_as_compiled
 from repro_torch.hw.profile import SiteSpecs
 from repro_torch.pytree import leaves
 
@@ -133,7 +133,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     half = hd // 2
     idx = torch.arange(hd, device=x.device)
-    freqs = theta ** (-(idx % half).to(torch.float32) / half)       # (hd,)
+    # as the reference's jitted rope computes it (half need not be a
+    # power of two: zamba2-7b's 112-wide heads give 56)
+    freqs = theta ** div_as_compiled(-(idx % half).to(torch.float32),
+                                     half)                          # (hd,)
     if positions.ndim == 1:
         positions = positions[None, :]
     ang = positions[..., None].to(torch.float32) * freqs            # (B, S, hd)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.layers import ACTIVATIONS, AnalogCtx, dense
 
 
@@ -136,8 +137,9 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     # load-balance loss (Switch-style): E * sum_e f_e * p_e
     me = gates.mean(dim=0)
-    ce = torch.bincount(topi.reshape(-1), minlength=e).to(torch.float32) \
-        / (t * k)
+    ce = div_as_compiled(
+        torch.bincount(topi.reshape(-1), minlength=e).to(torch.float32),
+        t * k)
     lb_loss = e * (me * ce).sum()
 
     cap = moe_capacity(t, cfg)

@@ -180,10 +180,14 @@ class PackManager:
     def probe_loss(self, pack: AnalogPack) -> float:
         """Teacher-forced loss on the calibration batch: the health
         probe."""
+        return float(self._probe(pack))
+
+    def _probe(self, pack: AnalogPack) -> torch.Tensor:
+        """The probe's device half (the reference's jitted ``_probe_fn``):
+        the loss as a tensor, read by :meth:`probe_loss`."""
         x = self.calib_tokens[:, :-1]
         y = self.calib_tokens[:, 1:]
-        return float(analog_eval_metrics(self.cfg, self.params, pack, x,
-                                         y)["loss"])
+        return analog_eval_metrics(self.cfg, self.params, pack, x, y)["loss"]
 
     @property
     def fresh_pack(self) -> AnalogPack:

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.layers import NEG_INF
 from repro_torch.models.registry import families_with, get_model
 from repro_torch.models.transformer import AnalogPack
@@ -119,13 +120,20 @@ def _advance(keys: torch.Tensor) -> torch.Tensor:
     return ((hi << 32) | lo) & _MASK63
 
 
+def temper(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """``logits`` in float32 over the temperature, as the reference's
+    jitted ``lg.astype(jnp.float32) / sampler.temperature`` computes it (a
+    multiply by the float32 reciprocal) on every device."""
+    return div_as_compiled(logits.to(torch.float32), temperature)
+
+
 def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
                   sampler: SamplerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token per row: (B, V) logits + (B,) int64 keys -> ((B,) tokens,
     advanced keys).  Greedy leaves keys untouched."""
     if sampler.kind == "greedy":
         return torch.argmax(logits, dim=-1), keys
-    lg = logits.to(torch.float32) / sampler.temperature
+    lg = temper(logits, sampler.temperature)
     if sampler.kind == "top_k":
         kth = torch.topk(lg, sampler.top_k, dim=-1).values[:, -1:]
         lg = torch.where(lg < kth, torch.full_like(lg, NEG_INF), lg)

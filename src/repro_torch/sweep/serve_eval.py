@@ -79,15 +79,21 @@ def _hash_tree(h, tree) -> None:
         h.update(tensor_bytes(leaf))
 
 
-def _serve_metrics(cfg, params, pack, calib_tokens, tokens, targets,
-                   prompts, decode_new, digital_toks) -> Dict[str, float]:
-    """calibrate → eval (→ decode_match) of one programmed pack."""
+def _serve_point(cfg, params, pack, calib_tokens, tokens, targets,
+                 prompts, decode_new, digital_toks) -> Dict[str, Any]:
+    """calibrate → eval (→ decode_match) of one programmed pack, the
+    metrics as tensors (the reference's jitted point function)."""
     pack = calibrate_lm(cfg, params, pack, calib_tokens)
     m = analog_eval_metrics(cfg, params, pack, tokens, targets)
     if prompts is not None:
         toks = decode_lm(cfg, params, prompts, decode_new, pack=pack)
         m["decode_match"] = (toks == digital_toks).float().mean()
-    return {k: float(v) for k, v in sorted(m.items())}
+    return m
+
+
+def _serve_metrics(*args) -> Dict[str, float]:
+    """:func:`_serve_point`'s metrics read to the host."""
+    return {k: float(v) for k, v in sorted(_serve_point(*args).items())}
 
 
 class ServeEvaluator:

@@ -1123,3 +1123,75 @@ def test_synthetic_batches_equal_on_cpu_and_card(cuda_device, mode):
         for k in a:
             assert b[k].device.type == "cuda"
             assert torch.equal(a[k], b[k].cpu()), (step, k)
+
+
+# ---------------------------------------------------------------------------
+# the analyzer's contracts and the scalar-div forms on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_decode_launches_fixed_on_the_card(cuda_device):
+    """``serve/decode-launches-fixed`` at smoke size on a Design-A pack:
+    every decode step launches 7·L+1 ``fused_mvm`` and L ``flash_decode``,
+    counted by ``kernels.fused.LAUNCHES``."""
+    from repro_torch.analysis import check_contract
+    from repro_torch.analysis import repo_contracts as R
+
+    cfg, params, pack = R.serve_vehicle("cuda")
+    t_fused.reset_launch_counts()
+    _, rec, built = R.serve_dense((cfg, params, pack))
+    want = {"fused_mvm": 7 * cfg.n_layers + 1, "flash_decode": cfg.n_layers}
+    assert len(rec.decode) > 5 and all(d == want for d in rec.decode)
+    assert t_fused.LAUNCHES["flash_decode"] == cfg.n_layers * len(rec.decode)
+    assert built == {("linear", 1, 7, 8, None, None)}
+    assert check_contract(R.decode_launches_contract(device="cuda"),
+                          "trace") == []
+
+
+@pytest.mark.cuda
+def test_paged_decode_launches_fixed_on_the_card(cuda_device):
+    from repro_torch.analysis import check_contract
+    from repro_torch.analysis import repo_contracts as R
+
+    cfg, params, pack = R.serve_vehicle("cuda")
+    t_fused.reset_launch_counts()
+    rt, rec = R.serve_paged((cfg, params, pack))
+    want = {"fused_mvm": 7 * cfg.n_layers + 1,
+            "paged_attention": cfg.n_layers}
+    assert all(d == want for d in rec.decode)
+    assert t_fused.LAUNCHES["paged_attention"] \
+        == cfg.n_layers * len(rec.decode)
+    assert rec.prefill_violations("paged") == []
+    assert rt.stats["prefix_hits"] > 0 and rt.stats["cache_evictions"] > 0
+    for c in R.paged_contracts(device="cuda"):
+        assert check_contract(c, "trace") == [], c.name
+
+
+@pytest.mark.cuda
+def test_second_build_runs_no_nvcc(cuda_device):
+    build.build_all()
+    before = build.BUILDS
+    assert build.build_all() == 0.0
+    assert build.BUILDS == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0.7, 56, 30, 1280])
+def test_scalar_division_on_the_card(cuda_device, d):
+    """On the card ``x / d`` by a Python number is a multiply by the
+    float32 reciprocal — ``core.quant.div_as_compiled``'s form, which is
+    what the reference's compiled division computes — and not the float64
+    quotient rounded to float32 (the CPU's IEEE division).  The scalar-div
+    repairs therefore leave every result on the card unchanged."""
+    from repro_torch.core.quant import div_as_compiled
+
+    x = torch.linspace(-64.0, 64.0, 1 << 16, dtype=torch.float32)
+    on_card = (x.to(cuda_device) / d).cpu()
+    chosen = div_as_compiled(x.to(cuda_device), d).cpu()
+    assert torch.equal(on_card, chosen)
+    assert torch.equal(chosen, div_as_compiled(x, d))
+    quotient = (x.double() / float(torch.tensor(d, dtype=torch.float32))) \
+        .to(torch.float32)
+    assert torch.equal(x / d, quotient)
+    assert not torch.equal(on_card, quotient)
