@@ -157,7 +157,26 @@ lines:
     state beside the next step and ``restore`` onto the card, every leaf
     equal and the data replayed; TR5 no kernel launched and no JAX loaded.
     Printed: step time, tokens/s, the AdamW update alone, peak memory, the
-    checkpoint's GB and seconds.  TR reaches no kernel of ``csrc/``.
+    checkpoint's GB and seconds.  TR reaches no kernel of ``csrc/``;
+13. path SO — scale-out on one card: the sharded steps of
+    ``repro_torch.launch.steps`` on a one-rank NCCL group
+    (``dist.HashStore``, no port) and a (1, 1) ``("data", "model")``
+    DeviceMesh, qwen1.5-4b at published width and TR's depth, weights from
+    seed 0, held against the unsharded path.  Gates: SO0 the group and
+    mesh open and close; SO1 ``build_train_step`` over TR's two
+    microbatches of 2 x 4096 tokens, two steps, against
+    ``train_step_fn`` from the same seed (its state moved to the host
+    first): loss, grad norm, lr and every parameter and moment
+    ``torch.equal``; SO2 ``build_prefill`` (4 rows x 32 positions) and 8
+    greedy ``build_decode`` steps against ``prefill``/``decode_step``:
+    logits every step and the caches ``torch.equal``; SO3 every returned
+    placement equals ``to_placements`` of the rules' spec, no kernel of
+    ``csrc/`` launched and no JAX loaded.  Printed: the sharded and
+    unsharded step times, peak memory, and the per-device GB of TR's whole
+    40-layer state on the (8,1), (2,4) and (16,16) meshes from the rules'
+    shard shapes.  One card cannot show what exists only across ranks:
+    multi-rank numerics are held on a gloo mesh on the CPU
+    (``tests/test_torch_distribution.py``).
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON (the
@@ -2812,6 +2831,227 @@ def path_tr(torch, args, kern_fused) -> dict:
             "stragglers": len(mon.flagged)}
 
 
+SO_STEPS = 2                   # SO1's train steps (TR's two microbatches)
+SO_ROWS, SO_PROMPT, SO_NEW = 4, 32, 8   # SO2's rows, prompt, decode steps
+#: the meshes of SO's printed per-device bytes of TR's 40-layer state
+SO_MESHES = (((8, 1), ("data", "model")), ((2, 4), ("data", "model")),
+             ((16, 16), ("data", "model")))
+
+
+def so_state_bytes(base) -> dict:
+    """Per-device bytes of ``base``'s whole train state (fp32 params, mu,
+    nu, and one fp32 gradient like the params) on each of ``SO_MESHES``,
+    from the rules' local shard shapes: arithmetic on meta tensors, no
+    allocation.  Returns {mesh: {part: GB}}."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as TS
+
+    state = TS.make_train_state(base, SEED, device="meta")
+    leaves = dict(flatten_with_path(state))
+    out = {}
+    for sizes, names in SO_MESHES:
+        mesh = MeshShape(names, sizes)
+        specs = rules.spec_leaves(
+            rules.opt_state_shardings(base, state, mesh), state)
+
+        def local_bytes(name):
+            t = leaves[name]
+            return (math.prod(rules.local_shape(t.shape, specs[name], mesh))
+                    * t.element_size())
+
+        parts = {k: sum(local_bytes(n) for n in leaves
+                        if n.startswith(prefix)) / 1e9
+                 for k, prefix in (("params", "params/"), ("mu", "opt/mu/"),
+                                   ("nu", "opt/nu/"))}
+        parts["grads"] = parts["params"]
+        parts["total"] = sum(parts.values())
+        out["x".join(map(str, sizes))] = parts
+    return out
+
+
+def so_equal(torch, got: dict, want: dict) -> list:
+    """Names of the leaves of ``got`` (DTensors on the card) that are not
+    ``torch.equal`` to ``want`` (host tensors)."""
+    return [n for n, t in got.items()
+            if not torch.equal(t.full_tensor(), want[n].to(DEVICE))]
+
+
+def path_so(torch, args, kern_fused) -> dict:
+    """Path SO: scale-out on one card.  The port's sharded steps
+    (``repro_torch.launch.steps``) on a one-rank NCCL group and a (1, 1)
+    ``("data", "model")`` mesh, qwen1.5-4b at its published width, depth
+    cut to ``--layers``, weights from a seed, held against the unsharded
+    path.  One card cannot run what exists only across ranks (NCCL takes
+    one rank per device); multi-rank numerics are held on a gloo mesh on
+    the CPU (``tests/test_torch_distribution.py``).  Gates, each raising:
+    SO0. the group and mesh open (``dist.HashStore``, ``device_id``) and
+         close at the end;
+    SO1. ``build_train_step`` over TR's two microbatches of 2 x 4096
+         tokens, two steps, against the unsharded ``train_step_fn`` from
+         the same seed (its state moved to the host first): loss, grad
+         norm and every parameter and moment ``torch.equal``;
+    SO2. ``build_prefill`` (4 rows x 32 positions) and ``build_decode``
+         (8 greedy steps) against ``prefill`` and ``decode_step``: logits
+         every step and the caches ``torch.equal``;
+    SO3. every placement SO1 and SO2 returned equals ``to_placements`` of
+         the rules' spec on the mesh; no kernel of ``csrc/`` launched and
+         no JAX loaded.
+    Printed: the sharded and unsharded step times (DTensor's dispatch
+    cost; the second step of each, each timed to a synchronize), peak
+    memory, and the per-device bytes of TR's whole 40-layer state on
+    the (8,1), (2,4) and (16,16) meshes (``so_state_bytes``)."""
+    import torch.distributed as dist
+
+    from repro_torch.config import SHAPES, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as TS
+
+    t_so = time.perf_counter()
+    kern_fused.reset_launch_counts()
+    base = get_config("qwen1.5-4b")
+    cfg = dataclasses.replace(base, n_layers=args.layers)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TR_BATCH)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_debug_mesh(1, 1, DEVICE)
+        print(f"SO0: one-rank {dist.get_backend()} group, mesh "
+              f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}; {cfg.name} "
+              f"at published width, {cfg.n_layers} of {base.n_layers} "
+              f"layers, weights from seed {SEED}", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ds = SyntheticLM(cfg, shape.seq_len, TR_BATCH, seed=0, mode="lm",
+                         device=DEVICE)
+        batches = [ds.batch(k) for k in range(SO_STEPS)]
+
+        def run(step, state):
+            ms, secs = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                ms.append(m)
+            return state, ms, secs
+
+        # SO1: the unsharded reference first, moved to the host
+        ref, ref_m, ref_s = run(tr_step_fn(cfg, TR_MICRO),
+                                TS.make_train_state(cfg, SEED, device=DEVICE))
+        ref = {n: t.cpu() for n, t in tr_leaves(ref).items()}
+        ref_m = [{k: v.cpu() for k, v in m.items()} for m in ref_m]
+        torch.cuda.empty_cache()
+        fn, (state_struct, _) = ST.build_train_step(
+            cfg, mesh, shape, microbatches=TR_MICRO, max_grad_norm=1.0,
+            weight_decay=0.1,
+            lr_schedule=adamw.cosine_schedule(TR_LR, TR_WARMUP, TR_TOTAL))
+        got, got_m, got_s = run(fn, TS.make_train_state(cfg, SEED,
+                                                        device=DEVICE))
+        metrics_eq = all(torch.equal(g[k].full_tensor().cpu(), w[k])
+                         for g, w in zip(got_m, ref_m)
+                         for k in ("loss", "grad_norm", "lr"))
+        got_leaves = tr_leaves(got)
+        bad = so_equal(torch, got_leaves, ref)
+        state_sh = rules.opt_state_shardings(cfg, state_struct, mesh)
+        placed = so_placed(torch, got, state_sh, mesh)
+        print(f"SO1: build_train_step, {SO_STEPS} steps of {TR_BATCH} x "
+              f"{shape.seq_len} tokens in {TR_MICRO} microbatches: losses "
+              f"{[float(m['loss']) for m in ref_m]} grad norms "
+              f"{[float(m['grad_norm']) for m in ref_m]}; loss, grad norm "
+              f"and lr equal: {metrics_eq}; {len(got_leaves)} leaves "
+              f"(params, mu, nu, step) torch.equal: {not bad}", flush=True)
+        if not metrics_eq or bad:
+            raise AssertionError(f"path SO: SO1 failed {bad[:4]}")
+        step_s, ref_step_s = got_s[-1], ref_s[-1]
+        del got, got_leaves, ref
+        torch.cuda.empty_cache()
+
+        # SO2: prefill and greedy decode
+        api = get_model(cfg)
+        params = api.init_params(cfg, SEED, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+        prompts = torch.randint(0, cfg.vocab, (SO_ROWS, SO_PROMPT),
+                                generator=gen, device=DEVICE)
+        max_len = SO_PROMPT + SO_NEW
+        pre, _ = ST.build_prefill(cfg, mesh, ShapeConfig(
+            "so_prefill", max_len, SO_ROWS, "prefill"))
+        dec, _ = ST.build_decode(cfg, mesh, ShapeConfig(
+            "so_decode", max_len, SO_ROWS, "decode"))
+        l_ref, c_ref = api.prefill(cfg, params, prompts, max_len)
+        l_got, c_got = pre(params, {"tokens": prompts})
+        logits_eq = [torch.equal(l_got.full_tensor(), l_ref)]
+        c_got_leaves = tr_leaves(c_got)
+        cache_sh = rules.tree_cache_shardings(cfg, c_got, mesh)
+        placed = placed and so_placed(torch, c_got, cache_sh, mesh)
+        tok_ref = tok_got = l_ref[:, -1].argmax(-1)[:, None]
+        for _ in range(SO_NEW):
+            l_ref, c_ref = api.decode_step(cfg, params, tok_ref, c_ref)
+            l_got, c_got = dec(params, {"token": tok_got, "cache": c_got})
+            logits_eq.append(torch.equal(l_got.full_tensor(), l_ref))
+            tok_ref = l_ref[:, -1].argmax(-1)[:, None]
+            tok_got = l_got.full_tensor()[:, -1].argmax(-1)[:, None]
+        placed = placed and so_placed(
+            torch, c_got, rules.tree_cache_shardings(cfg, c_got, mesh), mesh)
+        c_bad = so_equal(torch, tr_leaves(c_got),
+                         {n: t.cpu() for n, t in tr_leaves(c_ref).items()})
+        print(f"SO2: build_prefill {SO_ROWS} x {SO_PROMPT} and "
+              f"build_decode x {SO_NEW}: logits torch.equal at every step: "
+              f"{all(logits_eq)} ({sum(logits_eq)}/{len(logits_eq)}); "
+              f"{len(c_got_leaves)} cache leaves torch.equal: {not c_bad}",
+              flush=True)
+        if not all(logits_eq) or c_bad:
+            raise AssertionError(f"path SO: SO2 failed {c_bad[:4]}")
+        del params, c_ref, c_got, l_ref, l_got
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        moved = {n: c for n, c in kern_fused.LAUNCHES.items() if c}
+        jax_loaded = sorted(n for n in sys.modules
+                            if n == "jax" or n.startswith("jax."))
+        print(f"SO3: every returned placement equals the rules' on the "
+              f"(1, 1) mesh: {placed}; kernel launches in SO: "
+              f"{moved or 'none'}; JAX modules loaded: "
+              f"{jax_loaded or 'none'}", flush=True)
+        if not placed or moved or jax_loaded:
+            raise AssertionError("path SO: SO3 failed")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    per_dev = so_state_bytes(base)
+    print("SO: per-device GB of " + cfg.name + "'s whole "
+          f"{base.n_layers}-layer train state (fp32 params, mu, nu, grads) "
+          "by the rules: " + "; ".join(
+              f"({m}) " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              for m, parts in per_dev.items()), flush=True)
+    print(f"path SO: sharded step {step_s:.3f} s vs unsharded "
+          f"{ref_step_s:.3f} s (second step of each), peak memory "
+          f"{peak:.2f} GiB; path SO in {time.perf_counter() - t_so:.1f} s",
+          flush=True)
+    return {"step_s": step_s, "ref_step_s": ref_step_s, "peak": peak,
+            "per_device": per_dev}
+
+
+def so_placed(torch, tree, specs, mesh) -> bool:
+    """Every leaf of ``tree`` is a DTensor at ``to_placements`` of its
+    spec in ``specs`` (a spec tree shaped like it) on ``mesh``."""
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.sharding import rules
+
+    want = rules.spec_leaves(specs, tree)
+    return all(tuple(x.placements) == rules.to_placements(want[n], mesh)
+               for n, x in flatten_with_path(tree))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -2934,6 +3174,10 @@ def main() -> int:
           f"{tr['peak']:.2f} GiB, checkpoint {tr['ck_gb']:.3f} GB saved in "
           f"{tr['save_s']:.2f} s and restored in {tr['restore_s']:.2f} s, "
           f"stragglers flagged {tr['stragglers']} on {card}", flush=True)
+    so = path_so(torch, args, kern_fused)
+    print(f"path SO step: sharded {so['step_s']:.3f} s, unsharded "
+          f"{so['ref_step_s']:.3f} s, peak {so['peak']:.2f} GiB on {card}",
+          flush=True)
 
     kernels = [
         {"name": "fused_mvm", "route": "cuda",

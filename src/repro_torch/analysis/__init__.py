@@ -18,10 +18,15 @@ Two layers:
   ``repro_torch.analysis.repo_contracts``.
 
 Two reference rules have no counterpart.  ``spmd-concat`` guards XLA's
-SPMD partitioner, and the port has none (item 12 of the roadmap revisits
-it for DTensor).  ``pallas-tile`` guards Mosaic's tile rules, and the
-port's CUDA kernels take any M, N and head dimension and mask their own
-edges (``kernels/ops.py``).  The reference's jaxpr helpers
+SPMD partitioner, which miscompiled a concat of slices on a sharded dim
+(the reference's RoPE bug); DTensor has no partitioner that rewrites a
+concat — each op runs on its local shards, with explicit redistributions
+— so the class is held numerically instead: RoPE and a concat of halves
+on a ``model``-sharded q (over heads, within heads, over the sequence)
+equal the unsharded result to the bit on a 2 x 2 gloo mesh
+(``tests/test_torch_distribution.py``).  ``pallas-tile`` guards
+Mosaic's tile rules, and the port's CUDA kernels take any M, N and head
+dimension and mask their own edges (``kernels/ops.py``).  The reference's jaxpr helpers
 (``jaxpr_scalar_constants``, ``traced_constant_violations``) become
 :func:`template_leak_violations`, and ``jit_cache_size`` becomes
 :func:`programmed_cache_size` beside :class:`step_launches`.

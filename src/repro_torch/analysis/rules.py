@@ -85,6 +85,9 @@ HOT_ROOTS: Dict[str, tuple] = {
     "repro_torch/sweep/evaluate.py": ("trial_accuracy",),
     # repro/sweep/serve_eval.py:228 (ServeEvaluator's point function)
     "repro_torch/sweep/serve_eval.py": ("_serve_point",),
+    # repro/launch/steps.py:74, :101, :127 (the jitted sharded steps)
+    "repro_torch/launch/steps.py": ("build_train_step.fn",
+                                    "build_prefill.fn", "build_decode.fn"),
 }
 
 #: the inline marker naming an extra hot root on a ``def`` line

@@ -38,7 +38,15 @@ def fold_seed(seed: int, data) -> int:
 
 
 def generator(seed: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``.
+
+    The meta device has no generator of its own: there it is a CPU one,
+    which ``torch.randn(..., device="meta")`` accepts and never draws
+    from, so ``init_params``, ``init_cache`` and ``make_train_state`` build
+    shape-only trees on ``device="meta"`` (the port's ``jax.eval_shape``).
+    """
+    if torch.device(device).type == "meta":
+        return torch.Generator().manual_seed(int(seed))
     return torch.Generator(device=device).manual_seed(int(seed))
 
 

@@ -6,7 +6,13 @@ encoder-decoder's cross attention (counterpart of
 Decode writes the new token's K/V into the cache (or the page pool) **in
 place** (the reference builds a new array with ``.at[].set``): the callers
 never read the old cache again, and the slot cache or pool of a server is
-the largest activation-side buffer there is.
+the largest activation-side buffer there is.  On a mesh each rank writes
+its own shard of the cache (``sharding.perf.write_local``).
+
+``FLAGS.seq_parallel_attn`` (the reference's context parallelism) keeps
+a prompt's queries sequence-sharded over ``model`` around the attention
+and gathers K/V (``sharding.perf.constrain_bs``): a layout, no value
+changes.
 """
 
 from __future__ import annotations
@@ -14,10 +20,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import (AnalogCtx, dense, rms_norm, rope,
                                        streaming_attention)
+from repro_torch.sharding.perf import FLAGS, constrain_bs, write_local
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
@@ -50,9 +58,13 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor,
                  pos: torch.Tensor) -> None:
     """Write ``new`` (B, s, KV, hd) at per-row positions ``pos`` (B, s) of
     ``cache`` (B, S_max, KV, hd), in place.  Positions past the end are
-    dropped, like the reference's scatter."""
+    dropped, like the reference's scatter.  A cache on a mesh is written
+    shard by shard (:func:`sharding.perf.write_local`)."""
+    if isinstance(cache, DTensor) or isinstance(new, DTensor):
+        write_local(_write_cache, cache, new, pos, seq_dim=1)
+        return
     rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
-    inside = pos < cache.shape[1]
+    inside = (pos >= 0) & (pos < cache.shape[1])
     pos_c = torch.clamp(pos, max=cache.shape[1] - 1)
     keep = cache[rows, pos_c]
     cache[rows, pos_c] = torch.where(inside[..., None, None],
@@ -76,6 +88,7 @@ def attention_block(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    seq_par = FLAGS.seq_parallel_attn and cache is None and s > 1
 
     q = dense(x, p["wq"], "wq", ctx, aux, bias=p.get("bq"))
     k = dense(x, p["wk"], "wk", ctx, aux, bias=p.get("bk"))
@@ -98,8 +111,16 @@ def attention_block(
         return dense(out, p["wo"], "wo", ctx, aux), cache
 
     if cache is None:
+        if seq_par:
+            # context parallelism: queries stay sequence-sharded; K/V are
+            # gathered over the model axis (cheap: kv_heads*hd << d)
+            q = constrain_bs(q, seq=True)
+            k = constrain_bs(k, seq=False)
+            v = constrain_bs(v, seq=False)
         out = streaming_attention(q, k, v, q_offset=0, causal=causal,
                                   window=window)
+        if seq_par:
+            out = constrain_bs(out, seq=True)
         new_cache = {"k": k, "v": v}
     else:
         # decode: insert the new token(s) at each row's fill, attend over

@@ -15,12 +15,14 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.analog import AnalogWeights, analog_matmul
 from repro_torch.core.quant import calibrate_act_range, div_as_compiled
 from repro_torch.hw.profile import SiteSpecs
 from repro_torch.pytree import leaves
+from repro_torch.sharding.perf import local_attention
 
 NEG_INF = -1e30
 
@@ -48,9 +50,16 @@ def dense(x: torch.Tensor, w: torch.Tensor, name: str,
           ctx: Optional[AnalogCtx], aux: Optional[dict] = None, *,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ w`` — digitally, or through the analog pipeline when ``ctx``
-    carries programmed conductances for ``name``."""
+    carries programmed conductances for ``name``.  The digital product is
+    one 2-D ``mm`` over the flattened rows, which is what ``torch.matmul``
+    runs for a contiguous ``x``; spelled out, because ``matmul`` picks
+    ``mm`` or a broadcast ``bmm`` from the strides, and a DTensor's strides
+    can differ from its local tensor's at a size-1 dim (a decode step's
+    ``(B, 1, d)``), which would send the same numbers through another
+    kernel."""
     if ctx is None or name not in ctx.weights:
-        y = x @ w.to(x.dtype)
+        y = (x.reshape(-1, x.shape[-1]) @ w.to(x.dtype)).reshape(
+            *x.shape[:-1], w.shape[-1])
     else:
         aw = ctx.weights[name]
         spec = ctx.specs.spec_for(name)
@@ -129,7 +138,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding in the reference's roll form,
     ``x * cos + rotate_half(x) * sin``.  x: (B, S, H, hd); positions:
-    (B, S) or (S,)."""
+    (B, S) or (S,).  The roll by half of the even head dim is spelled as
+    the concat of the two halves it equals (the same values moved; a
+    DTensor has a strategy for ``cat`` on every torch the port runs on,
+    for ``roll`` not)."""
     hd = x.shape[-1]
     half = hd // 2
     idx = torch.arange(hd, device=x.device)
@@ -143,7 +155,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     sign = torch.where(idx < half, -1.0, 1.0).to(torch.float32)
-    rot = torch.roll(x, half, dims=-1) * sign                       # [-x2, x1]
+    rot = torch.cat([x[..., half:], x[..., :half]], dim=-1) * sign  # [-x2, x1]
     return (x * cos + rot * sin).to(x.dtype)
 
 
@@ -166,7 +178,14 @@ def streaming_attention(
 ) -> torch.Tensor:
     """GQA attention with an online softmax over KV chunks (a Python loop
     in place of the reference's ``lax.scan``).  ``q_offset``/``kv_len``
-    may be per-row ``(B,)`` tensors (continuous-batching decode)."""
+    may be per-row ``(B,)`` tensors (continuous-batching decode).  On a
+    mesh each rank attends its own rows and KV heads
+    (``sharding.perf.local_attention``)."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        return local_attention(streaming_attention, q, k, v,
+                               q_offset=q_offset, kv_len=kv_len,
+                               causal=causal, window=window, chunk=chunk,
+                               scale=scale)
     b, sq, h, hd = q.shape
     _, skv, kv_heads, _ = k.shape
     g = h // kv_heads

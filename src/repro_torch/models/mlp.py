@@ -7,9 +7,15 @@ flattened, positions within an expert come from a token-major cumsum over
 ``(tokens * k, E)`` one-hots, and tokens move into an ``(E * C, d)``
 buffer.  Assignments past an expert's capacity are dropped and fall back
 to the residual stream.  The experts stay digital, as in the reference
-(DESIGN.md, MoE-expert caveat).  The reference's mesh-sharding branches
-(``repro.sharding.perf.FLAGS``) are not ported: scale-out is ROADMAP
-queue A item 12.
+(DESIGN.md, MoE-expert caveat).  The reference's three mesh-sharding
+branches (``sharding.perf.FLAGS``: ``moe_dispatch_sharding``,
+``moe_cap_shard``, ``moe_weight_gather``) constrain the dispatch buffer,
+the expert outputs and the expert weights to a layout on the mesh
+(``sharding.perf.constraint``); they move data and change no value, and
+on plain tensors they do nothing.  On a mesh the routing's buffers are
+made like the token rows (``new_zeros``), so they are DTensors too, and
+the load fraction counts one-hots (``F.one_hot(...).sum``, equal to a
+``bincount``, which DTensor has no strategy for).
 
 Two orders are fixed so that a run's bits do not depend on the device's
 scheduling: top-k breaks ties to the lower expert index (as
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.layers import ACTIVATIONS, AnalogCtx, dense
+from repro_torch.sharding.perf import FLAGS, constraint
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, n_layers: int,
@@ -138,8 +145,7 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # load-balance loss (Switch-style): E * sum_e f_e * p_e
     me = gates.mean(dim=0)
     ce = div_as_compiled(
-        torch.bincount(topi.reshape(-1), minlength=e).to(torch.float32),
-        t * k)
+        F.one_hot(topi.reshape(-1), e).sum(dim=0).to(torch.float32), t * k)
     lb_loss = e * (me * ce).sum()
 
     cap = moe_capacity(t, cfg)
@@ -149,16 +155,38 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     # every kept assignment owns its buffer row, so a plain write moves
     # it; the dropped ones all land on the overflow row, which is cut off
-    xbuf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    xbuf = xt.new_zeros((e * cap + 1, d))
     xbuf[dest] = xt[tok]
-    ye = _experts(p, xbuf[:e * cap].reshape(e, cap, d), cfg.act)
+    xe = xbuf[:e * cap].reshape(e, cap, d)
+
+    if FLAGS.moe_dispatch_sharding:
+        # the dispatched buffer on the expert-parallel layout, so the
+        # scatter becomes an exchange instead of replicate + all-reduce
+        # (the reference's hypothesis M1)
+        xe = constraint(xe, "model", None, None)
+    if FLAGS.moe_cap_shard:
+        # 2D expert parallelism: experts over "model", capacity over
+        # "data" (M4); a mesh without "data" leaves the buffer as it is
+        xe = constraint(xe, "model", "data", None)
+    if FLAGS.moe_weight_gather:
+        # gather the expert weights before use instead of all-reducing
+        # the f-dim partial sums of the activations (M3)
+        p = dict(p)
+        for wname in ("w_gate", "w_up", "w_down"):
+            p[wname] = constraint(p[wname], "model", None, None)
+
+    ye = _experts(p, xe, cfg.act)
+    if FLAGS.moe_dispatch_sharding:
+        ye = constraint(ye, "model", None, None)
+    if FLAGS.moe_cap_shard:
+        ye = constraint(ye, "model", "data", None)
 
     # ---- combine: a token's k slots summed in ascending order ----------
     yflat = ye.reshape(e * cap, d)
     contrib = torch.where(keep, wgt, torch.zeros_like(wgt))[:, None] \
         * yflat[torch.clamp(dest, max=e * cap - 1)]
     contrib = contrib.reshape(t, k, d)
-    y = torch.zeros((t, d), dtype=x.dtype, device=dev)
+    y = xt.new_zeros((t, d))
     for j in range(k):
         y = y + contrib[:, j]
 

@@ -40,6 +40,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_block, init_attention
 from repro_torch.models.layers import AnalogCtx, norm, remat_call
 from repro_torch.models.mlp import init_mlp, init_moe, mlp_block, moe_block
+from repro_torch.sharding.perf import FLAGS, constrain_bs
 
 GLOBAL_WINDOW = 1 << 30
 
@@ -271,7 +272,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
     (default ``cfg.remat``) checkpoints each layer while a gradient is
     recorded; the values do not change."""
     tokens = _tokens(params, tokens)
-    x = _embed(cfg, params, tokens, prefix_embeds)
+    x = _maybe_seq_shard(_embed(cfg, params, tokens, prefix_embeds))
     positions = torch.arange(tokens.shape[1], device=x.device)
     x, _, aux = _run_layers(cfg, params, x, positions=positions, cache=None,
                             cache_len=None, pack=pack,
@@ -304,7 +305,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens, max_len: int, *,
     cache is the state after the prompt (no padding to ``max_len``)."""
     tokens = _tokens(params, tokens)
     s = tokens.shape[1]
-    x = _embed(cfg, params, tokens, prefix_embeds)
+    x = _maybe_seq_shard(_embed(cfg, params, tokens, prefix_embeds))
     positions = torch.arange(s, device=x.device)
     x, new_cache, _ = _run_layers(cfg, params, x, positions=positions,
                                   cache=None, cache_len=None, pack=pack)
@@ -518,6 +519,14 @@ def greedy_decode(cfg: ModelConfig, params: dict, prompts, n_new: int, *,
 
 
 # ---------------------------------------------------------------------------
+
+
+def _maybe_seq_shard(x):
+    """Whole-stream sequence parallelism (``FLAGS.seq_parallel_attn``):
+    a prompt's activations sequence-sharded over ``model``."""
+    if FLAGS.seq_parallel_attn and x.shape[1] > 1:
+        return constrain_bs(x, seq=True)
+    return x
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

@@ -1,11 +1,19 @@
-"""Error-feedback int8 gradient compression (counterpart of
-``repro.optim.compress``, its local part).
+"""Gradient compression for the cross-pod data-parallel all-reduce
+(counterpart of ``repro.optim.compress``).
 
-The gradient plus the carried residual is quantized to int8 with one
-float32 scale per leaf; the quantization error is carried to the next
-step, which keeps SGD and Adam converging.  The reference's
-``ring_allreduce_int8``, a ``shard_map`` ring over a named mesh axis,
-belongs with scale-out (ROADMAP queue A item 12) and is not here.
+Two pieces:
+
+* **Error-feedback int8 quantization** (``ef_compress``): the gradient
+  plus the carried residual is quantized to int8 with one float32 scale
+  per leaf; the quantization error is carried to the next step, which
+  keeps SGD and Adam converging.
+* **int8 ring all-reduce** (:func:`ring_allreduce_int8`): a ring of
+  ``torch.distributed`` point-to-point sends over a process group, each
+  hop moving an int8 payload and its float32 scale unchanged.  Wire
+  traffic is a quarter of a float32 ring's, which is the point: the
+  pod-to-pod hop is the slow link at 512+ devices.  It is
+  ``FLAGS.compress_pod_grads``' path, which no step turns on (as in the
+  reference).
 """
 
 from __future__ import annotations
@@ -13,8 +21,9 @@ from __future__ import annotations
 from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.quant import true_div
+from repro_torch.core.quant import div_as_compiled, true_div
 from repro_torch.pytree import flatten_with_path, leaves, tree_map, unflatten_into
 
 
@@ -46,3 +55,54 @@ def ef_compress(grads: Any, residual: Any) -> Tuple[Any, Any, Any]:
 def init_residual(params) -> Any:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def _fma(q: torch.Tensor, scale: torch.Tensor,
+         acc: torch.Tensor) -> torch.Tensor:
+    """``q * scale + acc`` rounded once to float32 (a fused multiply-add):
+    the int8 x float32 product is exact in float64, so the float64 sum
+    rounds to the fused result (but where a float64 rounding lands on a
+    float32 tie, which needs the two terms 2^21 apart)."""
+    return (q.to(torch.float64) * scale.to(torch.float64)
+            + acc.to(torch.float64)).to(torch.float32)
+
+
+def ring_allreduce_int8(q: torch.Tensor, scale: torch.Tensor,
+                        group=None) -> torch.Tensor:
+    """Ring all-reduce of an int8 payload over ``group`` (the default
+    group when None); every rank returns the float32 mean.
+
+    The payload and its scale travel around the ring *unchanged*: ``n -
+    1`` hops, each sending what this rank holds to rank ``+1`` and taking
+    rank ``-1``'s (``batch_isend_irecv``), so each rank's original
+    contribution visits every rank.  The accumulator is local float32 and
+    never on the wire; it adds each arrival's dequant in arrival order
+    (own, ``-1``, ``-2``, ...) in the reference's compiled form: XLA
+    contracts each dequant-add into a fused multiply-add, the first one
+    fusing the rank's own dequant onto the first arrival's (rounded)
+    dequant, and divides by the static ``n`` as a multiply by its
+    reciprocal (``div_as_compiled``).
+    """
+    n = dist.get_world_size(group)
+    if n == 1:
+        return _dequant(q, scale)
+    me = dist.get_rank(group)
+    nxt, prv = (me + 1) % n, (me - 1) % n
+    if group is not None:
+        nxt = dist.get_global_rank(group, nxt)
+        prv = dist.get_global_rank(group, prv)
+    acc = None
+    relay_q, relay_s = q.contiguous(), scale.reshape(1).contiguous()
+    for _ in range(n - 1):
+        got_q, got_s = torch.empty_like(relay_q), torch.empty_like(relay_s)
+        ops = [dist.P2POp(dist.isend, relay_q, nxt, group),
+               dist.P2POp(dist.isend, relay_s, nxt, group),
+               dist.P2POp(dist.irecv, got_q, prv, group),
+               dist.P2POp(dist.irecv, got_s, prv, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        relay_q, relay_s = got_q, got_s
+        arrived = relay_s.reshape(scale.shape)
+        acc = _fma(q, scale, _dequant(relay_q, arrived)) if acc is None \
+            else _fma(relay_q, arrived, acc)
+    return div_as_compiled(acc, n)

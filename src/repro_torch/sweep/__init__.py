@@ -16,8 +16,10 @@ one cached, resumable path:
 ...                     cache_dir="sweep_cache")
 >>> results.mean("on_off_ratio100")
 
-The port loops over a compile group's points and trials on one device,
-with integer seeds and port-tagged cache signatures (``sweep.evaluate``).
+The port loops over a compile group's points and trials in Python, with
+integer seeds and port-tagged cache signatures (``sweep.evaluate``); on a
+process group of several ranks ``run_sweep(mesh=sweep_mesh())`` splits
+them over the ranks (``sweep.dispatch``).
 """
 
 from repro_torch.sweep.dispatch import shard_leading, sweep_mesh

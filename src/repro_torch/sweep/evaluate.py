@@ -56,7 +56,8 @@ from repro_torch.core.analog import (
 from repro_torch.core.calibrate import constrain_power_of_two
 from repro_torch.core.errors import fold_seed
 from repro_torch.core.quant import calibrate_act_range
-from repro_torch.sweep.dispatch import shard_point_trial_batch
+from repro_torch.sweep.dispatch import (gather_point_trial,
+                                        shard_point_trial_batch)
 from repro_torch.sweep.spec import set_field
 
 
@@ -267,8 +268,8 @@ class ClassifierEvaluator:
         mesh=None,
     ) -> List[List[float]]:
         """Evaluate every (point, trial) of one compile group in turn."""
-        rows, seeds = shard_point_trial_batch(
-            list(dyn_rows), trial_keys(seed, trials), mesh)
+        rows, seeds, axis = shard_point_trial_batch(
+            dyn_rows, trial_keys(seed, trials), mesh)
         pms = self._programmed(template)
         xte = self.xte if test_n is None else self.xte[:test_n]
         yte = self.yte if test_n is None else self.yte[:test_n]
@@ -279,7 +280,7 @@ class ClassifierEvaluator:
                 float(trial_accuracy(self.layers, spec, s, self.xca, xte, yte,
                                      act_fn=self.act_fn, pms=pms))
                 for s in seeds])
-        return out
+        return gather_point_trial(out, mesh, axis)
 
     # -- caches ------------------------------------------------------------
     def _programmed(self, template: AnalogSpec) -> List[ProgrammedMatrix]:
@@ -353,10 +354,11 @@ class FunctionEvaluator:
             raise ValueError(
                 f"FunctionEvaluator declares no dynamic fields but the "
                 f"executor passed {dyn_names!r}")
-        rows, seeds = shard_point_trial_batch(
-            list(dyn_rows), trial_keys(seed, trials), mesh)
+        rows, seeds, axis = shard_point_trial_batch(
+            dyn_rows, trial_keys(seed, trials), mesh)
         if self.takes_key:
             vals = [_to_py(self.fn(template, s)) for s in seeds]
         else:
             vals = [_to_py(self.fn(template))]
-        return [list(vals) for _ in rows]
+        return gather_point_trial([list(vals) for _ in rows], mesh,
+                                  axis)

@@ -15,8 +15,9 @@ Execution model:
    In the reference a group is one jitted evaluation; in the port it is
    one materialized template and one programmed-codes cache entry shared
    by its points, which the evaluator loops over (``sweep.evaluate``).
-4. **Dispatch** each group through the evaluator, timing wall-clock per
-   group (split evenly over its points as ``wall_s``).
+4. **Dispatch** each group through the evaluator, optionally split over
+   the ranks of a mesh (``repro_torch.sweep.dispatch``), timing
+   wall-clock per group (split evenly over its points as ``wall_s``).
 5. **Record** one :class:`~repro_torch.sweep.results.PointResult` per
    point and persist the cache.
 
@@ -97,8 +98,10 @@ def run_sweep(
     """Evaluate every design point of ``sweep``, resumable.
 
     ``cache_dir`` enables the on-disk cache (``<cache_dir>/sweeps/
-    <name>.json``); ``force`` recomputes cached points; ``mesh`` must be
-    None (one device, ``repro_torch.sweep.dispatch``); ``verbose`` prints
+    <name>.json``); ``force`` recomputes cached points; ``mesh`` (a 1-D
+    ``data`` mesh, ``sweep.dispatch.sweep_mesh``) splits each group's
+    points or trials over its ranks, and every rank gets every result
+    (give each rank its own ``cache_dir``, or none); ``verbose`` prints
     the points left to run and their groups to stderr.
     """
     points = sweep.expand()

@@ -51,7 +51,8 @@ from repro_torch.serve.analog_engine import (
     program_lm,
     program_lm_from_codes,
 )
-from repro_torch.sweep.dispatch import shard_point_trial_batch
+from repro_torch.sweep.dispatch import (gather_point_trial,
+                                        shard_point_trial_batch)
 from repro_torch.sweep.evaluate import (
     dynamic_fields_for,
     mapping_signature,
@@ -169,8 +170,8 @@ class ServeEvaluator:
         mesh=None,
     ) -> List[List[Dict[str, float]]]:
         """Evaluate every (point, trial) of one compile group in turn."""
-        rows, seeds = shard_point_trial_batch(
-            list(dyn_rows), trial_keys(seed, trials), mesh)
+        rows, seeds, axis = shard_point_trial_batch(
+            dyn_rows, trial_keys(seed, trials), mesh)
         codes = self._codes(template)
         tokens = self.eval_tokens if test_n is None \
             else self.eval_tokens[:test_n]
@@ -186,7 +187,7 @@ class ServeEvaluator:
                     self.calib_tokens, tokens, targets, self.prompts,
                     self.decode_new, self._digital_toks)
                 for s in seeds])
-        return out
+        return gather_point_trial(out, mesh, axis)
 
     # -- caches ------------------------------------------------------------
     def _codes_key(self, template) -> str:

@@ -34,6 +34,7 @@ from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw
 from repro_torch.pytree import (flatten_with_path, leaves, tree_map,
                                 unflatten_into)
+from repro_torch.sharding.perf import replicate_dims
 
 MOE_LB_COEF = 0.01
 
@@ -64,6 +65,10 @@ def train_state_from_numpy(params: Mapping, *, device="cuda") -> TrainState:
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy.  On a mesh the gather of the targets' logits
+    needs the vocab dim whole: vocab-sharded logits replicate it first
+    (``sharding.perf.replicate_dims``; a plain tensor is untouched)."""
+    logits = replicate_dims(logits, -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.mean(logz - gold)
@@ -123,8 +128,8 @@ def train_step_fn(
         if microbatches == 1:
             loss, _, grads = loss_and_grads(cfg, state.params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves(state.params)[0].device)
             for mb in split_micro(batch):

@@ -54,7 +54,8 @@ version at rwkv6-3b's channel-mix shapes (N = 8960 and K = 8960, 4 and
 and vlm smoke configs served on the kernel give the plain route's tokens.
 
 Training data on the card: a ``SyntheticLM`` batch asked for the card
-equals the CPU one's bits.
+equals the CPU one's bits; ``core.errors.generator`` on the card draws
+what the card's own generator draws (its meta-device branch aside).
 """
 
 import dataclasses
@@ -1195,3 +1196,18 @@ def test_scalar_division_on_the_card(cuda_device, d):
         .to(torch.float32)
     assert torch.equal(x / d, quotient)
     assert not torch.equal(on_card, quotient)
+
+
+@pytest.mark.cuda
+def test_generator_on_the_card_draws_as_before(cuda_device):
+    """``core.errors.generator`` makes a CPU generator only for the meta
+    device: on the card it is still the card's own generator, drawing what
+    ``torch.Generator(device="cuda")`` with the same seed draws."""
+    from repro_torch.core.errors import generator
+
+    g = generator(11, cuda_device)
+    assert g.device.type == "cuda"
+    got = torch.randn(4096, generator=g, device=cuda_device)
+    want = torch.randn(4096, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(11))
+    assert torch.equal(got, want)

@@ -1,0 +1,555 @@
+"""Scale-out on a CPU mesh: multi-process gloo groups of the port's
+``launch``, ``sharding``, ``optim.compress`` and ``sweep.dispatch``
+(the counterpart of ``tests/test_distribution.py``, which runs the
+reference on an 8-device host mesh).
+
+Each case is a job of its own ranks: one ``python -c`` process per rank,
+importing only the port, in a ``gloo`` group over a ``file://`` store
+(``init_process_group(timeout=60 s)``), under its own wall limit after
+which every rank is killed, so a mismatched collective fails the case
+instead of hanging the suite.  The jobs start together when the first
+case asks for one, at most ``MAX_RANKS`` processes at a time, and each
+case waits for its own.  Unless stated, a job is a 2 x 2 ``("data",
+"model")`` mesh (4 ranks).
+
+* The sharded train step (qwen3-14b smoke, 2 microbatches) against the
+  port's unsharded step: loss and grad norm within 1e-5 relative, every
+  parameter within the reference's 5e-3 (the worst of each printed).
+* ``build_step`` on gemma-2b, arctic-480b, zamba2-7b, rwkv6-3b and
+  whisper-large-v3 for train, prefill and decode, one step against the
+  port's unsharded step: loss and grad norm (train) and logits and caches
+  (prefill, decode) within 1e-5 relative, greedy tokens equal.
+* Every ``perf.VARIANTS`` entry on qwen3-14b and both MoE smoke configs:
+  prefill logits within 1e-5 relative of ``baseline``'s.
+* RoPE's rotate-half on a ``model``-sharded q (heads, and within heads)
+  equals the unsharded result to the bit: the ``spmd-concat`` class.
+* ``ring_allreduce_int8`` at 3 and 4 ranks equals the reference's
+  ``shard_map`` ring to the bit on the same numpy payloads (the reference
+  in a JAX subprocess with ``--xla_force_host_platform_device_count``),
+  and is within the reference's 0.05 relative of a plain ``all_reduce``
+  mean.
+* A ``run_sweep`` grid on a 4-rank 1-D ``data`` mesh equals the serial
+  run metric for metric: a group whose points divide the mesh (points
+  split), one whose points do not (trials split) and one where neither
+  divides (every rank runs the group).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import textwrap
+import threading
+import time
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+MAX_RANKS = 12             # processes of all jobs at once
+STORE_TIMEOUT_S = 60       # init_process_group(timeout=...)
+REL = 1e-5                 # logits, loss and grad norm, relative
+PARAM_ATOL = 5e-3          # the reference's bound on parameters
+RING_REL = 0.05            # the reference's bound against psum / n
+
+PRELUDE = f"""
+import json, os, sys
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+RANK, WS = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+dist.init_process_group(
+    "gloo", init_method="file://" + os.environ["INIT_FILE"], rank=RANK,
+    world_size=WS, timeout=timedelta(seconds={STORE_TIMEOUT_S}))
+
+
+def report(**kw):
+    if RANK == 0:
+        print("RESULT " + json.dumps(kw), flush=True)
+"""
+
+EPILOGUE = """
+bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
+             or n == "repro" or n.startswith("repro."))
+if bad:
+    raise SystemExit(f"the port loaded {bad[:4]}")
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+MODEL_HELPERS = """
+import copy
+from torch.distributed.tensor import DTensor
+from repro_torch.config import ShapeConfig
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.steps import build_step
+from repro_torch.models.registry import get_model
+from repro_torch.pytree import flatten_with_path
+from repro_torch.sharding import rules
+from repro_torch.train.step import make_train_state, train_step_fn
+
+MESH = make_debug_mesh(2, 2, "cpu")
+B, S = 8, 32
+
+
+def full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def rel(a, b):
+    a, b = full(a).double(), full(b).double()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def tree_rel(got, want):
+    w = dict(flatten_with_path(want))
+    return max((rel(g, w[n]) for n, g in flatten_with_path(got)
+                if w[n].dtype.is_floating_point), default=0.0)
+
+
+def placed_as_rules(tree, specs):
+    want = rules.spec_leaves(specs, tree)
+    return all(tuple(x.placements) == rules.to_placements(want[n], MESH)
+               for n, x in flatten_with_path(tree))
+
+
+def inputs(cfg, b=B, s=S, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=g)
+    kw = {}
+    if cfg.frontend:
+        kw["prefix_embeds"] = torch.randn(
+            (b, cfg.n_frontend_tokens, cfg.d_model), generator=g)
+    return toks, kw
+
+
+def train_case(cfg, microbatches=2):
+    shape = ShapeConfig("train", S, B, "train")
+    batch = SyntheticLM(cfg, S, B, seed=0, device="cpu").batch(0)
+    _, kw = inputs(cfg)
+    batch.update(kw)
+    step = train_step_fn(cfg, microbatches=microbatches)
+    s1, m1 = step(make_train_state(cfg, 0, device="cpu"), batch)
+    fn, _ = build_step(cfg, MESH, shape, microbatches=microbatches)
+    s2, m2 = fn(make_train_state(cfg, 0, device="cpu"), batch)
+    p1, p2 = dict(flatten_with_path(s1)), dict(flatten_with_path(s2))
+    worst = max(float((full(p2[n]).double() - p1[n].double()).abs().max())
+                for n in p1 if n.startswith("params/"))
+    return {"loss_rel": rel(m2["loss"], m1["loss"]),
+            "gnorm_rel": rel(m2["grad_norm"], m1["grad_norm"]),
+            "lr_equal": float(full(m2["lr"])) == float(m1["lr"]),
+            "param_worst": worst, "loss": float(m1["loss"])}
+
+
+def prefill_case(cfg):
+    api = get_model(cfg)
+    params = api.init_params(cfg, 0, device="cpu")
+    toks, kw = inputs(cfg)
+    l1, c1 = api.prefill(cfg, params, toks, S, **kw)
+    fn, _ = build_step(cfg, MESH, ShapeConfig("prefill", S, B, "prefill"))
+    l2, c2 = fn(params, {"tokens": toks, **kw})
+    return {"logits_rel": rel(l2, l1), "cache_rel": tree_rel(c2, c1),
+            "tokens_equal": bool(torch.equal(full(l2).argmax(-1),
+                                             l1.argmax(-1)))}
+
+
+def decode_case(cfg, n_steps=2):
+    api = get_model(cfg)
+    params = api.init_params(cfg, 0, device="cpu")
+    toks, kw = inputs(cfg)
+    _, c1 = api.prefill(cfg, params, toks[:, :S // 2], S, **kw)
+    c2 = copy.deepcopy(c1)
+    fn, _ = build_step(cfg, MESH, ShapeConfig("decode", S, B, "decode"))
+    worst, cache_worst, same = 0.0, 0.0, True
+    t1 = t2 = toks[:, S // 2:S // 2 + 1]
+    for _ in range(n_steps):
+        l1, c1 = api.decode_step(cfg, params, t1, c1)
+        l2, c2 = fn(params, {"token": t2, "cache": c2})
+        worst = max(worst, rel(l2, l1))
+        cache_worst = max(cache_worst, tree_rel(c2, c1))
+        t1 = l1[:, -1].argmax(-1)[:, None]
+        t2 = full(l2)[:, -1].argmax(-1)[:, None]
+        same &= bool(torch.equal(t1, t2))
+    return {"logits_rel": worst, "cache_rel": cache_worst,
+            "tokens_equal": same}
+"""
+
+
+def _arch_body(arch: str) -> str:
+    return MODEL_HELPERS + textwrap.dedent(f"""
+        cfg = get_smoke_config({arch!r})
+        report(train=train_case(cfg), prefill=prefill_case(cfg),
+               decode=decode_case(cfg))
+        """)
+
+
+TRAIN_BODY = MODEL_HELPERS + textwrap.dedent("""
+    from repro_torch.sharding.rules import opt_state_shardings
+    cfg = get_smoke_config("qwen3-14b")
+    out = train_case(cfg)
+    # the returned state sits where the rules put it
+    shape = ShapeConfig("train", S, B, "train")
+    fn, (state_struct, _) = build_step(cfg, MESH, shape, microbatches=2)
+    batch = SyntheticLM(cfg, S, B, seed=0, device="cpu").batch(0)
+    s2, _ = fn(make_train_state(cfg, 0, device="cpu"), batch)
+    out["placed"] = placed_as_rules(
+        s2, opt_state_shardings(cfg, state_struct, MESH))
+    report(**out)
+    """)
+
+VARIANTS_BODY = MODEL_HELPERS + textwrap.dedent("""
+    from repro_torch.sharding import perf
+    out = {}
+    for arch in ("qwen3-14b", "qwen3-moe-235b-a22b", "arctic-480b"):
+        cfg = get_smoke_config(arch)
+        params = get_model(cfg).init_params(cfg, 0, device="cpu")
+        toks, kw = inputs(cfg)
+        base, res = None, {}
+        for name in perf.VARIANTS:
+            with perf.variant(name):
+                fn, _ = build_step(cfg, MESH,
+                                   ShapeConfig("prefill", S, B, "prefill"))
+                lg, _ = fn(params, {"tokens": toks, **kw})
+            lg = full(lg)
+            base = lg if base is None else base
+            res[name] = rel(lg, base)
+        out[arch] = res
+    report(**out)
+    """)
+
+ROPE_BODY = MODEL_HELPERS + textwrap.dedent("""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models.layers import rope
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((4, 8, 4, 16), generator=g)
+    pos = torch.arange(8)
+    want = rope(q, pos, 10000.0)
+    half = q.shape[-1] // 2
+    want_cat = torch.cat([-q[..., half:], q[..., :half]], dim=-1)
+    out = {}
+    for label, pl in (("heads", [Shard(0), Shard(2)]),
+                      ("within_heads", [Shard(0), Shard(3)]),
+                      ("seq", [Replicate(), Shard(1)])):
+        qd = distribute_tensor(q, MESH, pl)
+        with implicit_replication():
+            got = full(rope(qd, pos, 10000.0))
+        cat = full(torch.cat([-qd[..., half:], qd[..., :half]], dim=-1))
+        out[label] = {"rope": bool(torch.equal(got, want)),
+                      "rotate_half": bool(torch.equal(cat, want_cat))}
+    report(**out)
+    """)
+
+RING_SEED = 3
+
+
+def _ring_body() -> str:
+    return textwrap.dedent(f"""
+        from repro_torch.optim.compress import _quant_int8, ring_allreduce_int8
+        rng = np.random.default_rng({RING_SEED})
+        q = rng.integers(-127, 128, (WS, 64)).astype(np.int8)
+        s = (rng.random(WS) * 0.1 + 1e-3).astype(np.float32)
+        got = ring_allreduce_int8(torch.from_numpy(q[RANK]),
+                                  torch.tensor(s[RANK]))
+        bits = [None] * WS
+        dist.all_gather_object(bits, got.numpy().view(np.uint32).tolist())
+        x = rng.normal(size=(WS, 64)).astype(np.float32)
+        qx, sx = _quant_int8(torch.from_numpy(x[RANK]))
+        ring = ring_allreduce_int8(qx, sx)
+        mean = torch.from_numpy(x[RANK]).clone()
+        dist.all_reduce(mean)
+        mean = mean / WS
+        err = float((ring - mean).abs().max() / mean.abs().max())
+        errs = [None] * WS
+        dist.all_gather_object(errs, err)
+        report(bits=bits, rel=max(errs))
+        """)
+
+
+def _ring_reference(n: int) -> list:
+    """The reference's ring over ``n`` host devices on the same payloads:
+    row r is what rank r returns."""
+    code = textwrap.dedent(f"""
+        import os, json
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+        import jax, numpy as np
+        import jax.numpy as jnp
+        from jax.sharding import PartitionSpec as P
+        from repro.optim.compress import ring_allreduce_int8
+        if hasattr(jax, "shard_map"):
+            shard_map, check = jax.shard_map, {{"check_vma": False}}
+        else:
+            from jax.experimental.shard_map import shard_map
+            check = {{"check_rep": False}}
+        rng = np.random.default_rng({RING_SEED})
+        q = rng.integers(-127, 128, ({n}, 64)).astype(np.int8)
+        s = (rng.random({n}) * 0.1 + 1e-3).astype(np.float32)
+        mesh = jax.make_mesh(({n},), ("data",))
+
+        def ring(q, s):
+            return ring_allreduce_int8(q, s[0], "data")
+
+        f = jax.jit(shard_map(ring, mesh=mesh, in_specs=(P("data"), P("data")),
+                              out_specs=P("data"), **check))
+        out = np.asarray(f(jnp.asarray(q), jnp.asarray(s)))
+        print("RESULT " + json.dumps(out.view(np.uint32).tolist()))
+        """)
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return _result(out.stdout)
+
+
+SWEEP_BODY = textwrap.dedent("""
+    from repro_torch.core import adc as TADC, analog as TA, errors as TE
+    from repro_torch.core import mapping as TM
+    from repro_torch.sweep import (Axis, ClassifierEvaluator,
+                                   FunctionEvaluator, SweepSpec, run_sweep,
+                                   sweep_mesh)
+    from repro_torch.sweep import dispatch
+    mesh = sweep_mesh()
+    assert mesh is not None and mesh.mesh_dim_names == ("data",)
+    rng = np.random.default_rng(0)
+    dims = (16, 32, 8)
+    layers = [(torch.tensor(rng.normal(size=(dims[i], dims[i + 1]))
+                            .astype(np.float32) * dims[i] ** -0.5),
+               torch.zeros(dims[i + 1])) for i in range(2)]
+    xca = torch.tensor(rng.normal(size=(64, 16)).astype(np.float32))
+    xte = torch.tensor(rng.normal(size=(128, 16)).astype(np.float32))
+    yte = torch.tensor(rng.integers(0, 8, 128))
+    base = TA.AnalogSpec(
+        mapping=TM.MappingConfig(scheme="differential", bits_per_cell=2,
+                                 on_off_ratio=1e3),
+        adc=TADC.ADCConfig(style="calibrated", bits=8),
+        error=TE.state_proportional(0.0), input_accum="digital")
+    grids = {
+        # 4 points >= 2 trials, 4 % 4 == 0: points split
+        "points": SweepSpec(name="p", base=base, trials=2, seed=3, axes=(
+            Axis("error.alpha", (0.01, 0.02, 0.05, 0.1)),)),
+        # 3 points do not divide 4; 4 trials do: trials split
+        "trials": SweepSpec(name="t", base=base, trials=4, seed=5, axes=(
+            Axis("error.alpha", (0.02, 0.05, 0.1)),)),
+        # neither divides: every rank runs the group
+        "neither": SweepSpec(name="n", base=base, trials=3, seed=7, axes=(
+            Axis("error.alpha", (0.02, 0.05, 0.1)),)),
+    }
+    from repro_torch.sweep import evaluate
+    calls = []
+    inner = evaluate.trial_accuracy
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return inner(*a, **kw)
+
+    evaluate.trial_accuracy = counted
+    out = {}
+    for name, sweep in grids.items():
+        ev = ClassifierEvaluator(layers, xca, xte, yte, device="cpu")
+        del calls[:]
+        sharded = run_sweep(sweep, ev, mesh=mesh)
+        n_local = len(calls)
+        serial = run_sweep(sweep, ev, mesh=None)
+        probe = FunctionEvaluator(lambda spec, seed: float(seed % 997),
+                                  name="probe", takes_key=True)
+        rows = [(0.0,)] * len(sweep.expand())
+        _, _, axis = dispatch.shard_point_trial_batch(
+            rows, list(range(sweep.trials)), mesh)
+        out[name] = {
+            "equal": [r.values for r in sharded]
+                     == [r.values for r in serial],
+            "probe_equal": [r.values for r in run_sweep(sweep, probe,
+                                                        mesh=mesh)]
+                           == [r.values for r in run_sweep(sweep, probe)],
+            "axis": axis, "local_calls": n_local,
+            "serial_calls": len(calls) - n_local,
+            "n_points": len(serial)}
+    report(**out)
+    """)
+
+
+# ---------------------------------------------------------------------------
+# the job runner
+# ---------------------------------------------------------------------------
+
+
+def _result(stdout: str):
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("RESULT ")]
+    assert lines, f"no RESULT line in:\n{stdout[-2000:]}"
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+class _Job:
+    def __init__(self, name: str, body: str, ranks: int, wall_s: float):
+        self.name, self.body, self.ranks, self.wall_s = \
+            name, body, ranks, wall_s
+        self.done = threading.Event()
+        self.outs = None
+        self.seconds = None
+
+    def run(self) -> None:
+        code = PRELUDE + self.body + EPILOGUE
+        tmp = tempfile.mkdtemp(prefix=f"gloo_{self.name}_")
+        env = dict(os.environ, PYTHONPATH=SRC, WORLD_SIZE=str(self.ranks),
+                   INIT_FILE=os.path.join(tmp, "store"), OMP_NUM_THREADS="1")
+        env.pop("XLA_FLAGS", None)
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(self.ranks):
+            log = [open(os.path.join(tmp, f"{r}.{s}"), "w+")
+                   for s in ("out", "err")]
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", code], env=dict(env, RANK=str(r)),
+                stdout=log[0], stderr=log[1], text=True), log))
+        deadline = t0 + self.wall_s
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+            except subprocess.TimeoutExpired:
+                break
+        self.outs = []
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            texts = []
+            for f in log:
+                f.seek(0)
+                texts.append(f.read())
+                f.close()
+            self.outs.append((p.returncode, *texts))
+        self.seconds = time.perf_counter() - t0
+        self.done.set()
+
+    def result(self):
+        self.done.wait()
+        for rank, (rc, out, err) in enumerate(self.outs):
+            assert rc == 0, (
+                f"job {self.name}: rank {rank} exited {rc} after "
+                f"{self.seconds:.1f} s (wall limit {self.wall_s} s)\n"
+                f"stdout tail:\n{out[-2000:]}\nstderr tail:\n{err[-4000:]}")
+        print(f"job {self.name}: {self.ranks} ranks, {self.seconds:.1f} s")
+        return _result(self.outs[0][1])
+
+
+class _Runner:
+    """Starts every job on a thread, longest first, keeping at most
+    ``MAX_RANKS`` processes alive."""
+
+    def __init__(self, jobs):
+        self.jobs = {j.name: j for j in jobs}
+        self._slots = threading.Semaphore(MAX_RANKS)
+        threading.Thread(target=self._start_all, daemon=True).start()
+
+    def _start_all(self):
+        for job in self.jobs.values():
+            for _ in range(job.ranks):
+                self._slots.acquire()
+            threading.Thread(target=self._run, args=(job,),
+                             daemon=True).start()
+
+    def _run(self, job):
+        try:
+            job.run()
+        finally:
+            for _ in range(job.ranks):
+                self._slots.release()
+
+    def __getitem__(self, name):
+        return self.jobs[name].result()
+
+
+ARCHS = ["gemma-2b", "arctic-480b", "zamba2-7b", "rwkv6-3b",
+         "whisper-large-v3"]
+
+
+@pytest.fixture(scope="module")
+def jobs():
+    order = [
+        _Job("arch-rwkv6-3b", _arch_body("rwkv6-3b"), 4, 400),
+        _Job("variants", VARIANTS_BODY, 4, 400),
+        _Job("arch-whisper-large-v3", _arch_body("whisper-large-v3"), 4, 400),
+        _Job("arch-zamba2-7b", _arch_body("zamba2-7b"), 4, 400),
+        _Job("arch-arctic-480b", _arch_body("arctic-480b"), 4, 400),
+        _Job("arch-gemma-2b", _arch_body("gemma-2b"), 4, 400),
+        _Job("train", TRAIN_BODY, 4, 400),
+        _Job("sweep", SWEEP_BODY, 4, 300),
+        _Job("rope", ROPE_BODY, 4, 200),
+        _Job("ring-3", _ring_body(), 3, 200),
+        _Job("ring-4", _ring_body(), 4, 200),
+    ]
+    runner = _Runner(order)
+    yield runner
+    # every job ends by its wall limit: wait, so no rank outlives the module
+    for job in runner.jobs.values():
+        job.done.wait()
+
+
+def test_sharded_train_step_matches_single_device(jobs):
+    r = jobs["train"]
+    print("loss rel", r["loss_rel"], "grad norm rel", r["gnorm_rel"],
+          "worst parameter", r["param_worst"])
+    assert r["loss_rel"] <= REL and r["gnorm_rel"] <= REL, r
+    assert r["param_worst"] < PARAM_ATOL, r
+    assert r["lr_equal"] and r["placed"], r
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_build_step_all_kinds_match_unsharded(jobs, arch):
+    r = jobs[f"arch-{arch}"]
+    print(arch, json.dumps(r))
+    t = r["train"]
+    assert t["loss_rel"] <= REL and t["gnorm_rel"] <= REL, t
+    assert t["param_worst"] < PARAM_ATOL and t["lr_equal"], t
+    for kind in ("prefill", "decode"):
+        k = r[kind]
+        assert k["logits_rel"] <= REL and k["cache_rel"] <= REL, (kind, k)
+        assert k["tokens_equal"], (kind, k)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "qwen3-moe-235b-a22b",
+                                  "arctic-480b"])
+def test_every_variant_equals_baseline(jobs, arch):
+    from repro_torch.sharding.perf import VARIANTS
+
+    r = jobs["variants"][arch]
+    print(arch, r)
+    assert sorted(r) == sorted(VARIANTS)
+    bad = {k: v for k, v in r.items() if not v <= REL}
+    assert not bad, bad
+
+
+def test_rope_rotate_half_on_a_model_sharded_q_is_exact(jobs):
+    r = jobs["rope"]
+    assert all(v["rope"] and v["rotate_half"] for v in r.values()), r
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_int8_ring_equals_the_reference_ring(jobs, n):
+    want = _ring_reference(n)
+    r = jobs[f"ring-{n}"]
+    # row r is rank r's answer: each rank sums in its own arrival order
+    assert r["bits"] == want
+    print("ring vs all_reduce mean, rel", r["rel"])
+    assert r["rel"] < RING_REL, r["rel"]
+
+
+def test_sweep_grid_on_a_mesh_equals_serial(jobs):
+    r = jobs["sweep"]
+    print(json.dumps(r))
+    assert [r[g]["axis"] for g in ("points", "trials", "neither")] \
+        == [0, 1, None]
+    for g, v in r.items():
+        assert v["equal"] and v["probe_equal"], (g, v)
+    # each rank drew only its share of (point, trial) seeds
+    p, t, n = r["points"], r["trials"], r["neither"]
+    assert p["local_calls"] * 4 == p["serial_calls"], p
+    assert t["local_calls"] * 4 == t["serial_calls"], t
+    assert n["local_calls"] == n["serial_calls"], n
+    assert (p["n_points"], t["n_points"], n["n_points"]) == (4, 3, 3)

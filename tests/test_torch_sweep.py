@@ -282,15 +282,23 @@ def test_profile_with_field_matches_reference(selector, path, value):
 
 
 def test_dispatch_is_single_device():
+    """Without a process group nothing is split: the mesh is None and the
+    placement helpers hand their inputs back (the gloo mesh's split is
+    held in tests/test_torch_distribution.py)."""
+    from repro_torch.sweep import dispatch as TD
+
     assert T.sweep_mesh() is None
     x = torch.zeros(4)
     assert T.shard_leading(x, None) is x
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.shard_leading(x, object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.run_sweep(T.SweepSpec(name="m", trials=1),
-                    T.FunctionEvaluator(lambda s: 1.0, name="m"),
-                    mesh=object())
+    rows, seeds = [(0.1,), (0.2,)], [1, 2, 3]
+    assert TD.shard_point_trial_batch(rows, seeds, None) == (rows, seeds,
+                                                             None)
+    block = [[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]]
+    assert TD.gather_point_trial(block, None, None) is block
+    res = T.run_sweep(T.SweepSpec(name="m", trials=2),
+                      T.FunctionEvaluator(lambda s: 1.0, name="m"),
+                      mesh=T.sweep_mesh())
+    assert [r.values for r in res] == [[1.0]]
 
 
 # ---------------------------------------------------------------------------
