@@ -176,7 +176,22 @@ lines:
     40-layer state on the (8,1), (2,4) and (16,16) meshes from the rules'
     shard shapes.  One card cannot show what exists only across ranks:
     multi-rank numerics are held on a gloo mesh on the CPU
-    (``tests/test_torch_distribution.py``).
+    (``tests/test_torch_distribution.py``);
+14. phase DR — the dry-run tooling (``repro_torch.launch.dryrun``,
+    ``op_stats``, ``roofline``), which touches no device: its CPU halves
+    start before path TR, each in its own ``python3`` process with no
+    card visible (a fake process group cannot share a process with SO's
+    NCCL group).  Gates: DR1 qwen1.5-4b x train_4k and x decode_32k at
+    full width and depth on the 16 x 16 fake pod, no error or skip, 256
+    devices, the arguments' bytes equal to the rules' local shards, and
+    0.05 < useful_ratio <= 1; DR2 the dry-run of TR's reduced cell on a
+    1 x 1 fake mesh against the same ``build_train_step`` on a one-rank
+    NCCL group on the card, both counted by ``OpStats``: flops equal, HBM
+    bytes within 1%, the arguments' bytes equal, and the H100 roofline
+    bound no longer than the measured step.  Printed: seconds per cell,
+    DR1's per-device collective bytes and counts and roofline terms,
+    DR2's roofline fraction and the dry-run's peak estimate beside
+    ``max_memory_allocated``.
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON (the
@@ -3052,6 +3067,247 @@ def so_placed(torch, tree, specs, mesh) -> bool:
                for n, x in flatten_with_path(tree))
 
 
+DR_CELLS = (("qwen1.5-4b", "train_4k"), ("qwen1.5-4b", "decode_32k"))
+DR_DEVICES = 256                  # DR1's mesh: the 16 x 16 production pod
+DR_USEFUL = (0.05, 1.0)           # DR1's open-closed bounds on useful_ratio
+DR_HBM_REL = 0.01                 # DR2: card bytes against the dry-run's
+DR_JOB = """
+import dataclasses, json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, "src")
+from repro_torch.config import SHAPES
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_debug_mesh
+arch, shape, layers = {arch!r}, {shape!r}, {layers!r}
+if layers is None:
+    rec = D.run_cell(arch, shape, multi_pod=False)
+else:
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    shape = dataclasses.replace(SHAPES[shape], global_batch={batch})
+    with D.fake_group(1):
+        rec = D.cell_stats(cfg, shape, make_debug_mesh(1, 1, "cpu"),
+                           microbatches={micro})
+rec["job_s"] = time.perf_counter() - t0
+print("RECORD " + json.dumps(rec), flush=True)
+"""
+
+
+def dr_start(layers: int) -> dict:
+    """Start phase DR's CPU halves, each its own ``python3`` process with
+    no card visible (the dry-run touches no device; its fake process
+    group cannot share a process with SO's NCCL group): DR1's two cells
+    at full width on the 16 x 16 fake pod, and DR2's dry-run of TR's
+    reduced cell on a 1 x 1 fake mesh.  They run beside TR and SO, which
+    are bound by the card.  Returns {label: (Popen, log path)}."""
+    import os
+
+    out = ROOT / "build" / "dr"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    jobs = {f"DR1 {a} x {s}": (a, s, None) for a, s in DR_CELLS}
+    jobs["DR2 dry-run"] = ("qwen1.5-4b", "train_4k", layers)
+    procs = {}
+    for label, (arch, shape, n) in jobs.items():
+        log = out / (label.replace(" ", "_") + ".log")
+        code = DR_JOB.format(arch=arch, shape=shape, layers=n,
+                             batch=TR_BATCH, micro=TR_MICRO)
+        with open(log, "w") as fh:
+            procs[label] = (subprocess.Popen(
+                [sys.executable, "-c", code], cwd=ROOT, env=env, stdout=fh,
+                stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def dr_record(label: str, job) -> dict:
+    """Wait for one of ``dr_start``'s jobs; its record, or raise with the
+    end of its log."""
+    proc, log = job
+    rc = proc.wait()
+    text = log.read_text()
+    lines = [ln for ln in text.splitlines() if ln.startswith("RECORD ")]
+    if rc != 0 or not lines:
+        raise AssertionError(f"phase DR: {label} exited {rc}:\n"
+                             f"{text[-3000:]}")
+    return json.loads(lines[-1][len("RECORD "):])
+
+
+def dr_arg_bytes(cfg, shape, mesh) -> int:
+    """Rank 0's bytes of a cell's placed inputs from the rules' specs and
+    ``rules.local_shape`` on a ``MeshShape`` (arithmetic on meta tensors,
+    independent of DTensor's own split)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.registry import get_model
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as TS
+
+    first = (TS.make_train_state(cfg, 0, device="meta")
+             if shape.kind == "train"
+             else get_model(cfg).init_params(cfg, 0, device="meta"))
+    structs = (first, ST.input_specs(cfg, shape))
+    total = 0
+    for tree, specs in zip(structs, ST.input_shardings(
+            cfg, mesh, shape.kind, structs)):
+        want = rules.spec_leaves(specs, tree)
+        total += sum(math.prod(rules.local_shape(t.shape, want[n], mesh))
+                     * t.element_size()
+                     for n, t in flatten_with_path(tree))
+    return total
+
+
+def path_dr(torch, args, kern_fused, procs) -> dict:
+    """Phase DR: the dry-run tooling (``repro_torch.launch.dryrun``,
+    ``op_stats``, ``roofline``).  Gates, each raising:
+    DR1. qwen1.5-4b x train_4k and x decode_32k at full width and depth
+         on the 16 x 16 fake pod (``run_cell``, each in its own process,
+         ``dr_start``): no error or skip, 256 devices,
+         ``argument_size_in_bytes`` equal to ``dr_arg_bytes`` and
+         ``0.05 < useful_ratio <= 1`` (above 1 work was lost; near 1/256
+         global work was counted per device);
+    DR2. TR's reduced cell (``--layers``, 2 x 4096 tokens in 2
+         microbatches, bf16): its dry-run on a 1 x 1 fake mesh against
+         the real ``build_train_step`` on a one-rank NCCL group and a
+         (1, 1) mesh on the card, counted by the same ``OpStats``: flops
+         equal, HBM bytes within 1%, ``argument_size_in_bytes`` equal to
+         the placed inputs' bytes, and the H100 roofline bound no longer
+         than the measured step (a bound above it means the count is
+         wrong).
+    Printed: seconds per cell, DR1's per-device collective bytes and
+    counts, DR2's roofline fraction and the dry-run's peak estimate
+    (arguments + temporaries) beside ``max_memory_allocated``."""
+    import torch.distributed as dist
+
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import roofline
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import MeshShape, make_debug_mesh
+    from repro_torch.launch.op_stats import OpStats
+    from repro_torch.pytree import leaves
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as TS
+
+    t_dr = time.perf_counter()
+    kern_fused.reset_launch_counts()
+    pod = MeshShape(("data", "model"), (16, 16))
+    base = get_config("qwen1.5-4b")
+    for proc, _ in procs.values():
+        proc.wait()
+    recs = {label: dr_record(label, job) for label, job in procs.items()}
+    for arch, shape_name in DR_CELLS:
+        rec = recs[f"DR1 {arch} x {shape_name}"]
+        bad = [k for k in ("error", "skipped") if k in rec]
+        if bad:
+            raise AssertionError(f"phase DR: DR1 {arch} x {shape_name}: "
+                                 f"{rec.get('error') or rec['skipped']}")
+        want = dr_arg_bytes(get_config(arch), SHAPES[shape_name], pod)
+        got = rec["memory_analysis"]["argument_size_in_bytes"]
+        row = roofline.roofline_row(roofline._enrich(dict(rec)))
+        coll = {k: v for k, v in rec["collective_bytes_per_device"].items()
+                if v}
+        counts = {k: int(v) for k, v in rec["collective_counts"].items()
+                  if v}
+        print(f"DR1 {arch} x {shape_name} x {rec['mesh']}: "
+              f"{rec['n_devices']} devices, traced in {rec['trace_s']} s "
+              f"({rec['job_s']:.1f} s with its imports); flops/device "
+              f"{rec['flops_per_device']:.4e}, HBM bytes/device "
+              f"{rec['hbm_bytes_per_device']:.4e}; collective bytes/device "
+              f"{coll} (total {rec['total_collective_bytes']:.4e}), counts "
+              f"{counts}; memory {rec['memory_analysis']}; arguments "
+              f"{got} B, by the rules {want} B; useful_ratio "
+              f"{row['useful_ratio']:.4f}; H100 terms compute "
+              f"{row['compute_s']:.4e} s, memory {row['memory_s']:.4e} s, "
+              f"collective {row['collective_s']:.4e} s ({row['dominant']})",
+              flush=True)
+        lo, hi = DR_USEFUL
+        if (rec["n_devices"] != DR_DEVICES or got != want
+                or not lo < row["useful_ratio"] <= hi):
+            raise AssertionError(f"phase DR: DR1 {arch} x {shape_name} "
+                                 f"failed")
+
+    # DR2: TR's reduced cell, dry-run against the card
+    dry = recs["DR2 dry-run"]
+    cfg = dataclasses.replace(base, n_layers=args.layers)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TR_BATCH)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_debug_mesh(1, 1, DEVICE)
+        fn, structs = ST.build_train_step(cfg, mesh, shape,
+                                          microbatches=TR_MICRO)
+        specs = ST.input_shardings(cfg, mesh, "train", structs)
+        torch.cuda.empty_cache()
+        state = TS.make_train_state(cfg, SEED, device=DEVICE)
+        batch = SyntheticLM(cfg, shape.seq_len, TR_BATCH, seed=0, mode="lm",
+                            device=DEVICE).batch(0)
+        placed = tuple(rules.distribute_tree(t, sp, mesh)
+                       for t, sp in zip((state, batch), specs))
+        del state
+        arg_bytes = sum(x.to_local().numel() * x.element_size()
+                        for x in leaves(placed))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with OpStats() as stats:
+            out = fn(*placed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*placed)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            del out
+        step_s = secs[-1]
+        del placed
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    card = stats.summary()
+    rec = dict(dry, arch="qwen1.5-4b", shape="train_4k", mesh="1x1",
+               kind="train", params=cfg.param_count(),
+               active_params=cfg.active_param_count(),
+               seq_len=shape.seq_len, global_batch=shape.global_batch)
+    rec = roofline._enrich(rec)
+    rec["n_layers"] = cfg.n_layers       # _enrich reads the config's depth
+    row = roofline.roofline_row(rec)
+    bound_s = max(row["compute_s"], row["memory_s"], row["collective_s"])
+    hbm_rel = abs(card.hbm_bytes - dry["hbm_bytes_per_device"]) \
+        / dry["hbm_bytes_per_device"]
+    est = (dry["memory_analysis"]["argument_size_in_bytes"]
+           + dry["memory_analysis"]["temp_size_in_bytes"])
+    moved = {n: c for n, c in kern_fused.LAUNCHES.items() if c}
+    print(f"DR2 {cfg.name} {cfg.n_layers} layers, {TR_BATCH} x "
+          f"{shape.seq_len} tokens in {TR_MICRO} microbatches: flops "
+          f"dry-run {dry['flops_per_device']:.6e} card {card.flops:.6e} "
+          f"(equal: {card.flops == dry['flops_per_device']}); HBM bytes "
+          f"dry-run {dry['hbm_bytes_per_device']:.6e} card "
+          f"{card.hbm_bytes:.6e} (rel {hbm_rel:.2e}); arguments dry-run "
+          f"{dry['memory_analysis']['argument_size_in_bytes']} B, placed on "
+          f"the card {arg_bytes} B; H100 roofline bound {bound_s:.4f} s "
+          f"({row['dominant']}: compute {row['compute_s']:.4f}, memory "
+          f"{row['memory_s']:.4f}) against the measured step {step_s:.4f} s"
+          f" (bound / step {bound_s / step_s:.3f}; roofline_fraction "
+          f"{row['roofline_fraction']:.3f}; model flops at peak over the "
+          f"step {row['model_flops'] / roofline.H100.peak_flops / step_s:.3f}"
+          f"); peak memory estimated {est / 2**30:.2f} GiB, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; dry-run "
+          f"{dry['job_s']:.1f} s; kernel launches {moved or 'none'}",
+          flush=True)
+    if (card.flops != dry["flops_per_device"] or hbm_rel > DR_HBM_REL
+            or arg_bytes != dry["memory_analysis"]["argument_size_in_bytes"]
+            or bound_s > step_s):
+        raise AssertionError("phase DR: DR2 failed")
+    print(f"phase DR in {time.perf_counter() - t_dr:.1f} s (its CPU "
+          f"halves began before path TR)", flush=True)
+    return {"step_s": step_s, "bound_s": bound_s, "recs": recs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -3168,16 +3424,26 @@ def main() -> int:
           f"{4 / rw['step_s']:.1f} tokens/s on {card}; B1 launches "
           f"{rw_launches}", flush=True)
     fam_launches = phase_fam(torch, kern_fused)
-    tr = path_tr(torch, args, kern_fused)
+    dr_jobs = dr_start(args.layers)
+    try:
+        tr, so, dr = (path_tr(torch, args, kern_fused),
+                      path_so(torch, args, kern_fused),
+                      path_dr(torch, args, kern_fused, dr_jobs))
+    finally:
+        for proc, _ in dr_jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(f"path TR step: {tr['step_s']:.3f} s, {tr['tokens_s']:.0f} "
           f"tokens/s, AdamW update {tr['update_s'] * 1e3:.1f} ms, peak "
           f"{tr['peak']:.2f} GiB, checkpoint {tr['ck_gb']:.3f} GB saved in "
           f"{tr['save_s']:.2f} s and restored in {tr['restore_s']:.2f} s, "
           f"stragglers flagged {tr['stragglers']} on {card}", flush=True)
-    so = path_so(torch, args, kern_fused)
     print(f"path SO step: sharded {so['step_s']:.3f} s, unsharded "
           f"{so['ref_step_s']:.3f} s, peak {so['peak']:.2f} GiB on {card}",
           flush=True)
+    print(f"phase DR: TR's reduced step {dr['step_s']:.4f} s against its "
+          f"H100 roofline bound {dr['bound_s']:.4f} s on {card}", flush=True)
 
     kernels = [
         {"name": "fused_mvm", "route": "cuda",

@@ -16,18 +16,27 @@ caches by the batch and cache rules.  The reference donates the decode
 cache (``donate_argnums``); here the decode step writes it in place.
 
 DTensor runs every op of these steps on sharded operands, with its own
-redistributions, except at five places where the model code acts
-explicitly, as GSPMD inserts its collectives:
+redistributions, except where the model code acts explicitly, as GSPMD
+inserts its collectives:
 
 * ``models.layers.streaming_attention`` — each rank attends its own rows
-  and KV heads (``sharding.perf.local_attention``): attention is
-  independent per (row, head), and DTensor's propagation of its batched
-  products over a batch and a head dim both sharded costs seconds per
-  new shape;
-
-* ``train.step.softmax_xent`` — the gather of the targets' logits
-  replicates the vocab dim of vocab-sharded logits first
-  (``sharding.perf.replicate_dims``);
+  and KV heads, or, on a sequence-sharded cache, its own positions,
+  the blocks folded by all-reduces of the online softmax's state
+  (``sharding.perf.local_attention``): attention is independent per
+  (row, head), and DTensor's propagation of its batched products over a
+  batch and a head dim both sharded costs seconds per new shape;
+* ``models.layers.dense`` — the product's rows are laid out by the
+  batch rule on both sides (``sharding.perf.product_rows``): DTensor's
+  cost model counts communication only, and left every row on every
+  rank, the product replicated over ``model``; heads are split only
+  where the mesh divides them (``sharding.perf.split_heads``);
+* ``models.transformer._embed`` — each rank looks up its own shard of
+  the table (``sharding.perf.local_embedding``): the card's torch has no
+  DTensor plan for an indexed table's backward;
+* ``train.step`` — the gather of the targets' logits replicates the
+  vocab dim of vocab-sharded logits first
+  (``sharding.perf.replicate_dims``), and each microbatch is laid out
+  like the batch (``sharding.perf.batch_rows``);
 * ``models.attention._write_cache`` — an index write cannot keep a
   sharded cache's placements, so each rank writes its own shard
   (``sharding.perf.write_local``), and a cache made inside the step
@@ -39,6 +48,10 @@ explicitly, as GSPMD inserts its collectives:
   has no strategy on the card's torch), and ``models.layers.dense`` its
   product as one 2-D ``mm`` (``matmul`` would pick ``bmm`` from a
   DTensor's strides at a size-1 dim): both the same values as before.
+
+On one rank every one of these is the plain path's arithmetic; across
+ranks the fold of attention's position blocks and the embedding's
+gradient sum in another order.
 """
 
 from __future__ import annotations
@@ -46,10 +59,12 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.models.registry import get_model
+from repro_torch.pytree import tree_map
 from repro_torch.sharding import rules
 from repro_torch.sharding.rules import P
 from repro_torch.train.step import make_train_state, train_step_fn
@@ -82,9 +97,39 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
     return {"token": torch.empty((b, 1), **i32), "cache": cache}
 
 
+def input_shardings(cfg: ModelConfig, mesh, kind: str, structs) -> tuple:
+    """The rules' specs of a step's two inputs, ``(state or params,
+    batch)`` (the reference's ``in_shardings``): the optimizer state's
+    (train) or the parameters' with FSDP, and the batch's; a decode
+    batch's cache by the cache rule."""
+    first, batch = structs
+    if kind == "train":
+        first_sh = rules.opt_state_shardings(cfg, first, mesh, fsdp=True)
+    else:
+        first_sh = rules.tree_param_shardings(cfg, first, mesh, fsdp=True)
+    if kind == "decode":
+        batch_sh = {
+            "token": rules.batch_spec(tuple(batch["token"].shape), mesh),
+            "cache": rules.tree_cache_shardings(cfg, batch["cache"], mesh),
+        }
+    else:
+        batch_sh = rules.tree_batch_shardings(batch, mesh)
+    return first_sh, batch_sh
+
+
 def _kw(batch) -> dict:
     return ({"prefix_embeds": batch["prefix_embeds"]}
             if "prefix_embeds" in batch else {})
+
+
+def _made_here(tree, mesh):
+    """``tree`` with each plain tensor (made inside the step from Python
+    numbers, the same on every rank: ``implicit_replication``'s reading)
+    replicated where it is, as the reference's every device computes it;
+    distributing it would broadcast rank 0's copy."""
+    return tree_map(lambda x: x if isinstance(x, DTensor) else
+                    DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False), tree)
 
 
 def _place_out(x, mesh):
@@ -106,8 +151,8 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     state_struct = make_train_state(cfg, 0, device=META)
     batch_struct = input_specs(cfg, shape)
 
-    state_sh = rules.opt_state_shardings(cfg, state_struct, mesh, fsdp=True)
-    batch_sh = rules.tree_batch_shardings(batch_struct, mesh)
+    state_sh, batch_sh = input_shardings(cfg, mesh, shape.kind,
+                                         (state_struct, batch_struct))
     metric_sh = {"loss": P(), "grad_norm": P(), "lr": P()}
 
     def fn(state, batch):
@@ -116,7 +161,8 @@ def build_train_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
         with implicit_replication():
             state, metrics = step(state, batch)
         return (rules.distribute_tree(state, state_sh, mesh),
-                rules.distribute_tree(metrics, metric_sh, mesh))
+                rules.distribute_tree(_made_here(metrics, mesh), metric_sh,
+                                      mesh))
 
     return fn, (state_struct, batch_struct)
 
@@ -128,9 +174,8 @@ def build_prefill(cfg: ModelConfig, mesh, shape: ShapeConfig):
     params_struct = api.init_params(cfg, 0, device=META)
     batch_struct = input_specs(cfg, shape)
     max_len = shape.seq_len
-    params_sh = rules.tree_param_shardings(cfg, params_struct, mesh,
-                                           fsdp=True)
-    batch_sh = rules.tree_batch_shardings(batch_struct, mesh)
+    params_sh, batch_sh = input_shardings(cfg, mesh, shape.kind,
+                                          (params_struct, batch_struct))
 
     def fn(params, batch):
         params = rules.distribute_tree(params, params_sh, mesh)
@@ -138,6 +183,7 @@ def build_prefill(cfg: ModelConfig, mesh, shape: ShapeConfig):
         with implicit_replication():
             logits, cache = api.prefill(cfg, params, batch["tokens"],
                                         max_len, **_kw(batch))
+        cache = _made_here(cache, mesh)
         return (_place_out(logits, mesh), rules.distribute_tree(
             cache, rules.tree_cache_shardings(cfg, cache, mesh), mesh))
 
@@ -151,12 +197,8 @@ def build_decode(cfg: ModelConfig, mesh, shape: ShapeConfig):
     api = get_model(cfg)
     params_struct = api.init_params(cfg, 0, device=META)
     batch_struct = input_specs(cfg, shape)
-    params_sh = rules.tree_param_shardings(cfg, params_struct, mesh,
-                                           fsdp=True)
-    batch_sh = {
-        "token": rules.batch_spec(tuple(batch_struct["token"].shape), mesh),
-        "cache": rules.tree_cache_shardings(cfg, batch_struct["cache"], mesh),
-    }
+    params_sh, batch_sh = input_shardings(cfg, mesh, shape.kind,
+                                          (params_struct, batch_struct))
 
     def fn(params, batch):
         params = rules.distribute_tree(params, params_sh, mesh)
@@ -164,6 +206,7 @@ def build_decode(cfg: ModelConfig, mesh, shape: ShapeConfig):
         with implicit_replication():
             logits, cache = api.decode_step(cfg, params, batch["token"],
                                             batch["cache"])
+        cache = _made_here(cache, mesh)
         return (_place_out(logits, mesh), rules.distribute_tree(
             cache, rules.tree_cache_shardings(cfg, cache, mesh), mesh))
 

@@ -25,7 +25,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import (AnalogCtx, dense, rms_norm, rope,
                                        streaming_attention)
-from repro_torch.sharding.perf import FLAGS, constrain_bs, write_local
+from repro_torch.sharding.perf import (FLAGS, constrain_bs, split_heads,
+                                      write_local)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
@@ -93,9 +94,9 @@ def attention_block(
     q = dense(x, p["wq"], "wq", ctx, aux, bias=p.get("bq"))
     k = dense(x, p["wk"], "wk", ctx, aux, bias=p.get("bk"))
     v = dense(x, p["wv"], "wv", ctx, aux, bias=p.get("bv"))
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = split_heads(q, h)
+    k = split_heads(k, kv)
+    v = split_heads(v, kv)
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"].to(q.dtype))
@@ -200,7 +201,7 @@ def cross_attention_block(p: dict, x: torch.Tensor,
     against cached encoder K/V, each (B, Senc, KV, hd)."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    q = dense(x, p["wq"], "xattn_wq", ctx, aux).reshape(b, s, h, hd)
+    q = split_heads(dense(x, p["wq"], "xattn_wq", ctx, aux), h)
     k, v = enc_kv
     out = streaming_attention(q, k, v, q_offset=0, causal=False, window=None)
     return dense(out.reshape(b, s, h * hd), p["wo"], "xattn_wo", ctx, aux)

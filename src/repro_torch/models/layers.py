@@ -22,7 +22,7 @@ from repro_torch.core.analog import AnalogWeights, analog_matmul
 from repro_torch.core.quant import calibrate_act_range, div_as_compiled
 from repro_torch.hw.profile import SiteSpecs
 from repro_torch.pytree import leaves
-from repro_torch.sharding.perf import local_attention
+from repro_torch.sharding.perf import local_attention, product_rows
 
 NEG_INF = -1e30
 
@@ -58,8 +58,10 @@ def dense(x: torch.Tensor, w: torch.Tensor, name: str,
     ``(B, 1, d)``), which would send the same numbers through another
     kernel."""
     if ctx is None or name not in ctx.weights:
-        y = (x.reshape(-1, x.shape[-1]) @ w.to(x.dtype)).reshape(
-            *x.shape[:-1], w.shape[-1])
+        # both ends laid out by rows (the backward takes the gradient
+        # to the rows' layout before it flattens it)
+        y = product_rows((product_rows(x).reshape(-1, x.shape[-1])
+                          @ w.to(x.dtype)).reshape(*x.shape[:-1], w.shape[-1]))
     else:
         aw = ctx.weights[name]
         spec = ctx.specs.spec_for(name)
@@ -175,12 +177,17 @@ def streaming_attention(
     kv_len=None,                  # valid KV length: scalar or (B,)
     chunk: int = 1024,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    kv_start: int = 0,
+    partial: bool = False,
+):
     """GQA attention with an online softmax over KV chunks (a Python loop
     in place of the reference's ``lax.scan``).  ``q_offset``/``kv_len``
     may be per-row ``(B,)`` tensors (continuous-batching decode).  On a
-    mesh each rank attends its own rows and KV heads
-    (``sharding.perf.local_attention``)."""
+    mesh each rank attends its own rows and KV heads, or its own block of
+    a sequence-sharded cache (``sharding.perf.local_attention``), which
+    passes ``kv_start``, the position of ``k[:, 0]``, and takes the
+    softmax's running state ``(m, l, acc)`` back (``partial``) to fold
+    the blocks together (:func:`finish_attention`)."""
     if isinstance(q, DTensor) or isinstance(k, DTensor):
         return local_attention(streaming_attention, q, k, v,
                                q_offset=q_offset, kv_len=kv_len,
@@ -214,7 +221,7 @@ def streaming_attention(
     for j in range(n_chunks):
         k_j = k[:, j * chunk:(j + 1) * chunk].to(torch.float32)
         v_j = v[:, j * chunk:(j + 1) * chunk].to(torch.float32)
-        k_pos = j * chunk + torch.arange(chunk, device=dev)
+        k_pos = kv_start + j * chunk + torch.arange(chunk, device=dev)
         s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_j)
         mask = torch.ones(q_pos.shape + (chunk,), dtype=torch.bool,
                           device=dev)                    # (..., sq, chunk)
@@ -225,7 +232,7 @@ def streaming_attention(
         if kv_len is not None:
             mask = mask & (k_pos < kv_len[..., None, None])
         if pad:
-            mask = mask & (k_pos < skv)
+            mask = mask & (k_pos < kv_start + skv)
         mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -234,6 +241,15 @@ def streaming_attention(
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, v_j)
         m = m_new
+    if partial:
+        return m, l, acc
+    return finish_attention(l, acc, q.dtype)
+
+
+def finish_attention(l, acc, dtype) -> torch.Tensor:
+    """The attention output (B, Sq, H, hd) from the online softmax's sum
+    ``l`` (B, KV, g, Sq) and accumulator ``acc`` (B, KV, g, Sq, hd)."""
+    b, kv_heads, g, sq, hd = acc.shape
     out = acc / torch.clamp(l, min=1e-30)[..., None]           # (b,k,g,q,hd)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
-    return out.to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, kv_heads * g, hd)
+    return out.to(dtype)

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.layers import ACTIVATIONS, AnalogCtx, dense
-from repro_torch.sharding.perf import FLAGS, constraint
+from repro_torch.sharding.perf import FLAGS, constraint, replicate_dims
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, n_layers: int,
@@ -182,7 +182,9 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         ye = constraint(ye, "model", "data", None)
 
     # ---- combine: a token's k slots summed in ascending order ----------
-    yflat = ye.reshape(e * cap, d)
+    # capacity whole before it flattens with the experts (a shard of it
+    # inside the flattened rows would be a strided shard)
+    yflat = replicate_dims(ye, 1).reshape(e * cap, d)
     contrib = torch.where(keep, wgt, torch.zeros_like(wgt))[:, None] \
         * yflat[torch.clamp(dest, max=e * cap - 1)]
     contrib = contrib.reshape(t, k, d)

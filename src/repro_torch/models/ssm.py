@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import AnalogCtx, dense, rms_norm
 from repro_torch.models.recurrent import chunked_decay_recurrence, decay_step
+from repro_torch.sharding.perf import split_heads
 
 CONV_W = 4  # depthwise conv window
 
@@ -209,17 +210,18 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         m = mixes[i][None, None]
         return x * m + xs * (1.0 - m)
 
-    r = dense(mix(0), p["wr"], "rwkv_wr", ctx, aux).reshape(b, s, h, hd)
-    k = dense(mix(1), p["wk"], "rwkv_wk", ctx, aux).reshape(b, s, h, hd)
-    v = dense(mix(2), p["wv"], "rwkv_wv", ctx, aux).reshape(b, s, h, hd)
+    r = split_heads(dense(mix(0), p["wr"], "rwkv_wr", ctx, aux), h)
+    k = split_heads(dense(mix(1), p["wk"], "rwkv_wk", ctx, aux), h)
+    v = split_heads(dense(mix(2), p["wv"], "rwkv_wv", ctx, aux), h)
     g = dense(mix(3), p["wg"], "rwkv_wg", ctx, aux)
 
     # Finch: data-dependent decay from a low-rank MLP on the mixed stream
     # (digital), clipped to [-8, 2] in float32 before the exp
-    lora = torch.tanh(mix(4) @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
+    lora = dense(torch.tanh(dense(mix(4), p["w_lora_a"], "rwkv_lora_a",
+                                  None)), p["w_lora_b"], "rwkv_lora_b", None)
     log_w = -torch.exp(torch.clamp(
         p["w_base"][None, None].to(f32) + lora.to(f32), -8.0, 2.0))
-    log_w = log_w.reshape(b, s, h, hd)
+    log_w = split_heads(log_w, h)
 
     s0 = None if state is None else state["wkv"]
     if decode:

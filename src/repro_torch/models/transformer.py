@@ -38,9 +38,10 @@ from repro_torch.core.errors import generator
 from repro_torch.hw.profile import Profile, SiteSpecs
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import attention_block, init_attention
-from repro_torch.models.layers import AnalogCtx, norm, remat_call
+from repro_torch.models.layers import AnalogCtx, dense, norm, remat_call
 from repro_torch.models.mlp import init_mlp, init_moe, mlp_block, moe_block
-from repro_torch.sharding.perf import FLAGS, constrain_bs
+from repro_torch.sharding.perf import (FLAGS, batch_rows, constrain_bs,
+                                      local_embedding)
 
 GLOBAL_WINDOW = 1 << 30
 
@@ -532,9 +533,12 @@ def _maybe_seq_shard(x):
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            prefix_embeds=None):
     """Token embeddings in ``cfg.dtype``; ``prefix_embeds`` (B, P, d), the
-    frontend stub's, replace the first P positions."""
+    frontend stub's, replace the first P positions.  On a mesh each rank
+    looks up the tokens in its shard of the table
+    (``sharding.perf.local_embedding``), and the rows come out laid out as
+    the batch."""
     dt = compute_dtype(cfg)
-    x = params["embed"][tokens].to(dt)
+    x = batch_rows(local_embedding(params["embed"], tokens)).to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if prefix_embeds is not None:
@@ -554,4 +558,4 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor,
                           adc_hi=pack.head_hi, act_hi=pack.head_act)
         return y.to(torch.float32)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w.to(x.dtype)).to(torch.float32)
+    return dense(x, w, "lm_head", None).to(torch.float32)

@@ -14,12 +14,17 @@ lacks (``except Exception: return x``), the port checks the names first
 and takes the reference's outcome: ``constraint`` leaves the tensor as
 it is, and :func:`constrain_bs` falls to its next spelling.
 
-Three helpers are the explicit actions the models take on a mesh where
-DTensor has no strategy, or one too costly to plan
-(``launch/steps.py``): :func:`replicate_dims` (replicate a dim before an
-op that needs it whole), :func:`write_local` (an in-place cache write
-on each rank's shard) and :func:`local_attention` (attention on each
-rank's own rows and KV heads).  Each leaves a plain tensor's path alone.
+The other helpers are the explicit actions the models take on a mesh
+where DTensor has no strategy, one too costly to plan, or one that
+leaves the work replicated (``launch/steps.py``): :func:`batch_rows` and
+:func:`product_rows` (rows laid out by the batch rule, before a product
+on both sides), :func:`split_heads` (gather a dim the heads cannot
+split), :func:`replicate_dims` (replicate a dim before an op that needs
+it whole), :func:`local_embedding` (the lookup in each rank's shard of
+the table), :func:`write_local` (an in-place cache write on each rank's
+shard, at :func:`shard_offset`) and :func:`local_attention` (attention
+on each rank's own rows, KV heads or cache positions).  Each leaves a
+plain tensor's path alone.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import contextlib
 import dataclasses
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 @dataclasses.dataclass
@@ -141,6 +146,156 @@ def constrain_bs(x, *, seq: bool):
     return x
 
 
+def batch_rows(x):
+    """``x`` (B, ...) laid out as the batch rule lays out a step's inputs
+    (``rules.batch_spec``): rows over the dp axes that divide them, every
+    other dim whole.  A plain tensor comes back unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.rules import batch_spec
+
+    return constraint(x, *batch_spec(tuple(x.shape), x.device_mesh))
+
+
+def local_embedding(table, tokens):
+    """``table[tokens]``, on a mesh looked up by each rank in its own
+    shard of a sharded table: DTensor's own plans for the lookup differ
+    between torch versions (an indexed table's backward has no plan on
+    the card's torch; ``F.embedding``'s masked partial sums lose their
+    mask when the rows are laid out again), so the lookup is explicit,
+    as vocabulary-parallel embeddings are written.
+
+    Per mesh dim: where the tokens' rows are sharded (the batch rule),
+    the table is whole and the rows stay sharded; where the table's
+    vocabulary is sharded, each rank looks up the tokens in its rows and
+    zeroes the rest, a partial sum that one rank's nonzero row makes
+    exact; where its d is sharded, so is the result's.  The backward
+    lays the gradient out the same way and adds each row's gradient
+    into the rank's shard of the table's.  A plain or unsharded table
+    takes ``table[tokens]``."""
+    if not isinstance(table, DTensor) or not any(
+            p.is_shard() for p in table.placements):
+        return table[tokens]
+    return _LocalEmbedding.apply(table, batch_rows(
+        _as_dtensor(tokens, table.device_mesh)))
+
+
+class _LocalEmbedding(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        mesh = table.device_mesh
+        t_pl, out_pl, g_pl = [], [], []
+        for i, p in enumerate(table.placements):
+            if tokens.placements[i].is_shard(0):
+                t_pl.append(Replicate())
+                out_pl.append(Shard(0))
+                g_pl.append(Partial())
+            elif p.is_shard(0):
+                t_pl.append(p)
+                out_pl.append(Partial())
+                g_pl.append(p)
+            elif p.is_shard(1):
+                t_pl.append(p)
+                out_pl.append(Shard(2))
+                g_pl.append(p)
+            else:
+                t_pl.append(Replicate())
+                out_pl.append(Replicate())
+                g_pl.append(Replicate())
+        local = table.redistribute(mesh, tuple(t_pl)).to_local()
+        idx = tokens.to_local().long() - shard_offset(
+            table.shape[0], mesh, t_pl, 0)
+        inside = (idx >= 0) & (idx < local.shape[0])
+        idx = torch.clamp(idx, 0, local.shape[0] - 1)
+        out = torch.where(inside[..., None], local[idx],
+                          torch.zeros((), dtype=local.dtype,
+                                      device=local.device))
+        ctx.save_for_backward(idx, inside)
+        ctx.layout = (mesh, tuple(table.placements), tuple(out_pl),
+                      tuple(g_pl), tuple(local.shape))
+        shape = tuple(tokens.shape) + (table.shape[1],)
+        return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                                  shape=shape, stride=_contiguous(shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, inside = ctx.saved_tensors
+        mesh, table_pl, out_pl, g_pl, local_shape = ctx.layout
+        # the gradient of a partial sum is the whole gradient
+        want = tuple(Replicate() if p.is_partial() else p for p in out_pl)
+        g = grad.redistribute(mesh, want).to_local()
+        g = torch.where(inside[..., None], g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+        acc = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
+        acc.index_add_(0, idx.reshape(-1), g.reshape(-1, local_shape[1]))
+        gt = DTensor.from_local(acc, mesh, g_pl, run_check=False)
+        return gt.redistribute(mesh, table_pl), None
+
+
+def product_rows(x):
+    """``x`` (B, ..., d) laid out for the rows of one product ``x @ w``:
+    B over the dp axes that divide it (the batch rule), d kept sharded
+    over ``model`` where it is (a row-parallel product's input, the
+    attention heads), every other dim whole and partial sums reduced.
+    The values do not change.  A plain tensor comes back unchanged.
+
+    DTensor would otherwise keep what the previous op left: its cost
+    model counts communication only, so it defers partial sums and
+    shards the contraction over ``data``, leaving every row on every
+    rank and the product replicated over ``model``; GSPMD reduces and
+    shards the rows.  And a dim sharded inside the flattened rows would
+    become a strided shard, whose propagation reads shard offsets from a
+    tensor (which a fake tensor cannot give)."""
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.rules import batch_spec
+
+    mesh = x.device_mesh
+    spec = list(batch_spec(tuple(x.shape), mesh))
+    names = mesh.mesh_dim_names or ()
+    if "model" in names and \
+            x.placements[names.index("model")].is_shard(x.ndim - 1):
+        spec[-1] = "model"
+    x = constraint(x, *spec)
+    if x.requires_grad:
+        x = _GradLayout.apply(x, tuple(x.placements))
+    return x
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the forward
+    value was: a gradient arriving in another layout would otherwise flow
+    on into the backward of the view before it (a dim sharded where the
+    view cannot unflatten it)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def split_heads(x, heads: int):
+    """``x`` (..., heads * hd) as (..., heads, hd).  On a mesh, a last dim
+    sharded over a mesh dim whose size does not divide ``heads`` is
+    gathered first: DTensor cannot unflatten a shard that splits a head
+    (GSPMD keeps it split inside the heads).  The values do not change."""
+    if isinstance(x, DTensor):
+        mesh, last = x.device_mesh, x.ndim - 1
+        want = tuple(Replicate() if p.is_shard(last)
+                     and heads % mesh.size(i) else p
+                     for i, p in enumerate(x.placements))
+        if tuple(x.placements) != want:
+            x = x.redistribute(mesh, want)
+    return x.reshape(*x.shape[:-1], heads, x.shape[-1] // heads)
+
+
 def replicate_dims(x, *dims: int):
     """``x`` with tensor dims ``dims`` whole on every rank: each mesh dim
     that shards one of them (or holds a partial sum) replicates; the other
@@ -168,9 +323,6 @@ def write_local(write, cache, new, pos, *, seq_dim: int) -> None:
     is dropped (``write`` drops positions outside ``[0, len)``).  A plain
     cache (made inside the step, so the same on every rank) takes ``new``
     and ``pos`` replicated."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-
     if not isinstance(cache, DTensor):
         write(cache, _whole(new), _whole(pos))
         return
@@ -181,51 +333,118 @@ def write_local(write, cache, new, pos, *, seq_dim: int) -> None:
     pos_pl = tuple(p if p.is_shard(0) else Replicate() for p in pl)
     new = _as_dtensor(new, mesh).redistribute(mesh, new_pl)
     pos = _as_dtensor(pos, mesh).redistribute(mesh, pos_pl)
-    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
-    write(cache.to_local(), new.to_local(), pos.to_local() - offset[seq_dim])
+    offset = shard_offset(cache.shape[seq_dim], mesh, pl, seq_dim)
+    write(cache.to_local(), new.to_local(), pos.to_local() - offset)
+
+
+def shard_offset(length: int, mesh, placements, dim: int) -> int:
+    """The global index at which this rank's shard of tensor dim ``dim``
+    (``length`` long) starts, from its coordinates on ``mesh``: each mesh
+    dim that shards ``dim`` splits the part before it as ``torch.chunk``
+    does, major to minor (DTensor's split).  Plain integers: nothing is
+    read from a tensor, so it holds on fake tensors too."""
+    coord = mesh.get_coordinate()
+    offset = 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-length // mesh.size(i))
+            start = min(coord[i] * chunk, length)
+            length = min(start + chunk, length) - start
+            offset += start
+    return offset
 
 
 def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
     """``attend(q, k, v, q_offset=..., kv_len=..., **kw)`` run by each rank
-    on its own block of rows and KV heads, the DTensor result laid out as
-    that block.
+    on its own block of rows, heads and cache positions, the DTensor
+    result laid out as that block.
 
     Attention is independent per (row, KV head): q (B, Sq, H, hd), k and v
-    (B, Skv, KV, hd) keep the batch sharding of q's mesh dims that shard
-    its batch, and the heads of a mesh dim that shards q's heads when both
-    H and KV divide it (a rank's q heads then use exactly its KV heads);
-    every other dim is whole on every rank.  DTensor would otherwise
-    propagate each of the online softmax's ops, and a product over a batch
-    and a head dim both sharded plans its redistributions by a graph
-    search, seconds per new shape.  Per-row ``q_offset``/``kv_len`` (B,)
-    are split like the rows; the arithmetic per (row, head) is the plain
-    path's."""
+    (B, Skv, KV, hd) keep the batch sharding of the mesh dims that shard
+    q's batch or k's (a cache stays where it is), and the heads of a mesh
+    dim that shards q's heads when H divides it: with the KV heads too
+    where KV divides it (a rank's q heads then use exactly its KV heads),
+    else, where the mesh dim's size is a multiple of KV, each rank takes
+    the one KV head its q heads share.  A mesh dim that shards neither
+    but shards the cache's positions (the rules' context-parallel cache)
+    keeps them split: each rank attends its own positions (``attend``'s
+    ``kv_start``, and its ``partial`` softmax state), and the ranks fold
+    their states together, the running max by an all-reduce max and the
+    sums by all-reduce sums, as the online softmax folds its chunks.
+    Every other dim is whole on every rank.  DTensor would otherwise
+    propagate each of the online softmax's ops, and a product over a
+    batch and a head dim both sharded plans its redistributions by a
+    graph search, seconds per new shape.  Per-row ``q_offset``/``kv_len``
+    (B,) are split like the rows; the arithmetic per (row, head) is the
+    plain path's but for the fold of the position blocks."""
+    from torch.distributed._functional_collectives import all_reduce
+
     mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
-    q_pl = tuple(q.placements) if isinstance(q, DTensor) \
-        else (Replicate(),) * mesh.ndim
+    whole = (Replicate(),) * mesh.ndim
+    q_pl = tuple(q.placements) if isinstance(q, DTensor) else whole
+    k_pl = tuple(k.placements) if isinstance(k, DTensor) else whole
+    v_pl = tuple(v.placements) if isinstance(v, DTensor) else whole
     heads, kv_heads = q.shape[2], k.shape[2]
-    pl = []
+    pl, kv_pl, seq_dims, pick = [], [], [], None
     for i, p in enumerate(q_pl):
         n = mesh.size(i)
-        if p.is_shard(0) and q.shape[0] % n == 0:
+        if (p.is_shard(0) or k_pl[i].is_shard(0)) and q.shape[0] % n == 0:
             pl.append(Shard(0))
+            kv_pl.append(Shard(0))
         elif p.is_shard(2) and heads % n == 0 and kv_heads % n == 0:
             pl.append(Shard(2))
+            kv_pl.append(Shard(2))
+        elif (p.is_shard(2) and heads % n == 0 and n % kv_heads == 0
+              and pick is None):
+            pl.append(Shard(2))
+            kv_pl.append(Replicate())
+            pick = (i, n // kv_heads)
+        elif k_pl[i].is_shard(1) and v_pl[i].is_shard(1):
+            pl.append(Replicate())
+            kv_pl.append(Shard(1))
+            seq_dims.append(i)
         else:
             pl.append(Replicate())
-    pl = tuple(pl)
+            kv_pl.append(Replicate())
+    pl, kv_pl = tuple(pl), tuple(kv_pl)
     row_pl = tuple(p if p.is_shard(0) else Replicate() for p in pl)
 
-    def block(t, placements):
-        return _as_dtensor(t, mesh).redistribute(mesh, placements).to_local()
+    def block(t, placements, grad_placements=None):
+        return _as_dtensor(t, mesh).redistribute(mesh, placements).to_local(
+            grad_placements=grad_placements)
 
     def rows(x):
         if not isinstance(x, torch.Tensor):
             return x
-        return block(x, row_pl if x.ndim else (Replicate(),) * mesh.ndim)
+        return block(x, row_pl if x.ndim else whole)
 
-    out = attend(block(q, pl), block(k, pl), block(v, pl),
-                 q_offset=rows(q_offset), kv_len=rows(kv_len), **kw)
+    if pick is None:
+        kb, vb = block(k, kv_pl), block(v, kv_pl)
+    else:
+        # each rank's gradient covers its own KV head: a partial sum
+        i, per = pick
+        grad_pl = tuple(Partial() if d == i else p
+                        for d, p in enumerate(kv_pl))
+        kb, vb = block(k, kv_pl, grad_pl), block(v, kv_pl, grad_pl)
+        j = mesh.get_coordinate()[i] // per
+        kb, vb = kb[:, :, j:j + 1], vb[:, :, j:j + 1]
+    args = (block(q, pl), kb, vb)
+    kw.update(q_offset=rows(q_offset), kv_len=rows(kv_len))
+    if not seq_dims:
+        out = attend(*args, **kw)
+    else:
+        from repro_torch.models.layers import finish_attention
+
+        m, l, acc = attend(*args, **kw, partial=True,
+                           kv_start=shard_offset(k.shape[1], mesh, kv_pl, 1))
+        for i in seq_dims:
+            group = mesh.get_group(i)
+            top = all_reduce(m, "max", group)
+            w = torch.exp(m - top)
+            l = all_reduce(l * w, "sum", group)
+            acc = all_reduce(acc * w[..., None], "sum", group)
+            m = top
+        out = finish_attention(l, acc, q.dtype)
     return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
                               shape=q.shape, stride=_contiguous(q.shape))
 

@@ -34,7 +34,7 @@ from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw
 from repro_torch.pytree import (flatten_with_path, leaves, tree_map,
                                 unflatten_into)
-from repro_torch.sharding.perf import replicate_dims
+from repro_torch.sharding.perf import batch_rows, replicate_dims
 
 MOE_LB_COEF = 0.01
 
@@ -120,9 +120,12 @@ def train_step_fn(
                 raise ValueError(
                     f"batch dim {b} not divisible by {microbatches} "
                     f"microbatches")
-            out.append((name, x.reshape(microbatches, b // microbatches,
-                                        *x.shape[1:])))
-        return [{name: x[i] for name, x in out} for i in range(microbatches)]
+            # microbatch i is rows [i * b / mb, (i + 1) * b / mb), as the
+            # reference's; on a mesh each is laid out like the batch
+            out.append((name, replicate_dims(x, 0).reshape(
+                microbatches, b // microbatches, *x.shape[1:])))
+        return [{name: batch_rows(x[i]) for name, x in out}
+                for i in range(microbatches)]
 
     def step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         if microbatches == 1:
