@@ -181,10 +181,11 @@ lines:
     ``op_stats``, ``roofline``), which touches no device: its CPU halves
     start before path TR, each in its own ``python3`` process with no
     card visible (a fake process group cannot share a process with SO's
-    NCCL group).  Gates: DR1 qwen1.5-4b x train_4k and x decode_32k at
-    full width and depth on the 16 x 16 fake pod, no error or skip, 256
-    devices, the arguments' bytes equal to the rules' local shards, and
-    0.05 < useful_ratio <= 1; DR2 the dry-run of TR's reduced cell on a
+    NCCL group).  Gates: DR1 qwen1.5-4b x train_4k and x decode_32k and
+    rwkv6-3b x prefill_32k at full width and depth on the 16 x 16 fake
+    pod, and qwen1.5-4b x decode_32k on the 512-rank 2 x 16 x 16 two
+    pods, no error or skip, 256 or 512 devices, the arguments' bytes
+    equal to the rules' local shards, and 0.05 < useful_ratio <= 1; DR2 the dry-run of TR's reduced cell on a
     1 x 1 fake mesh against the same ``build_train_step`` on a one-rank
     NCCL group on the card, both counted by ``OpStats``: flops equal, HBM
     bytes within 1%, the arguments' bytes equal, and the H100 roofline
@@ -3067,8 +3068,14 @@ def so_placed(torch, tree, specs, mesh) -> bool:
                for n, x in flatten_with_path(tree))
 
 
-DR_CELLS = (("qwen1.5-4b", "train_4k"), ("qwen1.5-4b", "decode_32k"))
-DR_DEVICES = 256                  # DR1's mesh: the 16 x 16 production pod
+#: DR1's cells: (arch, shape, the two-pod mesh)
+DR_CELLS = (("qwen1.5-4b", "train_4k", False),
+            ("qwen1.5-4b", "decode_32k", False),
+            ("rwkv6-3b", "prefill_32k", False),
+            ("qwen1.5-4b", "decode_32k", True))
+#: DR1's meshes: the 16 x 16 production pod and the 2 x 16 x 16 two pods
+DR_MESHES = {False: (("data", "model"), (16, 16)),
+             True: (("pod", "data", "model"), (2, 16, 16))}
 DR_USEFUL = (0.05, 1.0)           # DR1's open-closed bounds on useful_ratio
 DR_HBM_REL = 0.01                 # DR2: card bytes against the dry-run's
 DR_JOB = """
@@ -3081,7 +3088,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_debug_mesh
 arch, shape, layers = {arch!r}, {shape!r}, {layers!r}
 if layers is None:
-    rec = D.run_cell(arch, shape, multi_pod=False)
+    rec = D.run_cell(arch, shape, multi_pod={multi!r})
 else:
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     shape = dataclasses.replace(SHAPES[shape], global_batch={batch})
@@ -3096,27 +3103,32 @@ print("RECORD " + json.dumps(rec), flush=True)
 def dr_start(layers: int) -> dict:
     """Start phase DR's CPU halves, each its own ``python3`` process with
     no card visible (the dry-run touches no device; its fake process
-    group cannot share a process with SO's NCCL group): DR1's two cells
-    at full width on the 16 x 16 fake pod, and DR2's dry-run of TR's
-    reduced cell on a 1 x 1 fake mesh.  They run beside TR and SO, which
-    are bound by the card.  Returns {label: (Popen, log path)}."""
+    group cannot share a process with SO's NCCL group): DR1's four cells
+    at full width on the 16 x 16 fake pod or the 2 x 16 x 16 two pods,
+    and DR2's dry-run of TR's reduced cell on a 1 x 1 fake mesh.  They run
+    beside TR and SO, which are bound by the card.  Returns {label:
+    (Popen, log path)}."""
     import os
 
     out = ROOT / "build" / "dr"
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    jobs = {f"DR1 {a} x {s}": (a, s, None) for a, s in DR_CELLS}
-    jobs["DR2 dry-run"] = ("qwen1.5-4b", "train_4k", layers)
+    jobs = {dr_label(*cell): (*cell, None) for cell in DR_CELLS}
+    jobs["DR2 dry-run"] = ("qwen1.5-4b", "train_4k", False, layers)
     procs = {}
-    for label, (arch, shape, n) in jobs.items():
+    for label, (arch, shape, multi, n) in jobs.items():
         log = out / (label.replace(" ", "_") + ".log")
-        code = DR_JOB.format(arch=arch, shape=shape, layers=n,
+        code = DR_JOB.format(arch=arch, shape=shape, multi=multi, layers=n,
                              batch=TR_BATCH, micro=TR_MICRO)
         with open(log, "w") as fh:
             procs[label] = (subprocess.Popen(
                 [sys.executable, "-c", code], cwd=ROOT, env=env, stdout=fh,
                 stderr=subprocess.STDOUT), log)
     return procs
+
+
+def dr_label(arch: str, shape: str, multi: bool) -> str:
+    return f"DR1 {arch} x {shape} x {'pod2x16x16' if multi else 'pod16x16'}"
 
 
 def dr_record(label: str, job) -> dict:
@@ -3159,9 +3171,11 @@ def dr_arg_bytes(cfg, shape, mesh) -> int:
 def path_dr(torch, args, kern_fused, procs) -> dict:
     """Phase DR: the dry-run tooling (``repro_torch.launch.dryrun``,
     ``op_stats``, ``roofline``).  Gates, each raising:
-    DR1. qwen1.5-4b x train_4k and x decode_32k at full width and depth
-         on the 16 x 16 fake pod (``run_cell``, each in its own process,
-         ``dr_start``): no error or skip, 256 devices,
+    DR1. qwen1.5-4b x train_4k and x decode_32k and rwkv6-3b x
+         prefill_32k (the per-rank recurrence) at full width and depth on
+         the 16 x 16 fake pod, and qwen1.5-4b x decode_32k on the 2 x 16
+         x 16 two pods (``run_cell``, each in its own process,
+         ``dr_start``): no error or skip, 256 or 512 devices,
          ``argument_size_in_bytes`` equal to ``dr_arg_bytes`` and
          ``0.05 < useful_ratio <= 1`` (above 1 work was lost; near 1/256
          global work was counted per device);
@@ -3191,25 +3205,26 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
 
     t_dr = time.perf_counter()
     kern_fused.reset_launch_counts()
-    pod = MeshShape(("data", "model"), (16, 16))
     base = get_config("qwen1.5-4b")
     for proc, _ in procs.values():
         proc.wait()
     recs = {label: dr_record(label, job) for label, job in procs.items()}
-    for arch, shape_name in DR_CELLS:
-        rec = recs[f"DR1 {arch} x {shape_name}"]
+    for arch, shape_name, multi in DR_CELLS:
+        label = dr_label(arch, shape_name, multi)
+        rec = recs[label]
         bad = [k for k in ("error", "skipped") if k in rec]
         if bad:
-            raise AssertionError(f"phase DR: DR1 {arch} x {shape_name}: "
+            raise AssertionError(f"phase DR: {label}: "
                                  f"{rec.get('error') or rec['skipped']}")
-        want = dr_arg_bytes(get_config(arch), SHAPES[shape_name], pod)
+        mesh = MeshShape(*DR_MESHES[multi])
+        want = dr_arg_bytes(get_config(arch), SHAPES[shape_name], mesh)
         got = rec["memory_analysis"]["argument_size_in_bytes"]
         row = roofline.roofline_row(roofline._enrich(dict(rec)))
         coll = {k: v for k, v in rec["collective_bytes_per_device"].items()
                 if v}
         counts = {k: int(v) for k, v in rec["collective_counts"].items()
                   if v}
-        print(f"DR1 {arch} x {shape_name} x {rec['mesh']}: "
+        print(f"{label}: "
               f"{rec['n_devices']} devices, traced in {rec['trace_s']} s "
               f"({rec['job_s']:.1f} s with its imports); flops/device "
               f"{rec['flops_per_device']:.4e}, HBM bytes/device "
@@ -3222,10 +3237,9 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
               f"collective {row['collective_s']:.4e} s ({row['dominant']})",
               flush=True)
         lo, hi = DR_USEFUL
-        if (rec["n_devices"] != DR_DEVICES or got != want
+        if (rec["n_devices"] != math.prod(mesh.sizes) or got != want
                 or not lo < row["useful_ratio"] <= hi):
-            raise AssertionError(f"phase DR: DR1 {arch} x {shape_name} "
-                                 f"failed")
+            raise AssertionError(f"phase DR: {label} failed")
 
     # DR2: TR's reduced cell, dry-run against the card
     dry = recs["DR2 dry-run"]

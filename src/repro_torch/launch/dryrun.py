@@ -10,7 +10,23 @@ returns at once, moving nothing) at 256 or 512 ranks, this process
 standing for rank 0; its mesh is ``device_type="cpu"``; and every tensor
 is a ``FakeTensor`` (a shape and a dtype, no storage).  The step runs
 eagerly on those, op by op, and ``op_stats.OpStats`` counts what rank 0
-dispatches; the reference lowers and compiles instead.
+dispatches; the reference lowers and compiles instead.  Two loops whose
+steps have the same shapes run in part and are counted for all of their
+steps, as the reference's while bodies are weighted by their trip counts
+(``op_stats``'s docstring): the recurrence's chunks (``op_stats.scan``)
+and the train step's microbatches (``op_stats.trips``); ``cell_stats``'s
+``trip_weighting=False`` runs every step.  The model path lays out by
+hand what DTensor cannot plan on fake tensors or would repeat on every
+rank (``sharding/perf.py``'s explicit actions), so that every cell of
+both meshes counts, each within 10 minutes on a CPU.
+
+``--all`` runs the ten archs x four shapes on both ``pod16x16`` (256 fake
+ranks) and ``pod2x16x16`` (512; axes ``pod``, ``data``, ``model``): 80
+records, 14 skipped with the reference's reason (long_500k on the seven
+full-attention archs) and 66 counted.  One process runs the cells one
+after another, about 1.3 CPU-hours in all (the slowest cell about 4
+minutes); separate ``--arch``/``--shape`` invocations can run side by
+side, as the sweep is resumable.
 
 Usage::
 
@@ -92,7 +108,7 @@ def _storages(tree) -> set:
 
 
 def cell_stats(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
-               microbatches=None) -> dict:
+               microbatches=None, trip_weighting: bool = True) -> dict:
     """One cell on ``mesh`` (a ``DeviceMesh`` over a fake group): the
     step from ``launch.steps.build_step``, its inputs made as fake tensors
     and placed by the rules before the count starts (the reference's
@@ -110,7 +126,7 @@ def cell_stats(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                 lambda t: torch.empty(t.shape, dtype=t.dtype), s), sp, mesh)
             for s, sp in zip(structs, specs))
     t0 = time.perf_counter()
-    with OpStats(fake_mode) as stats:
+    with OpStats(fake_mode, trip_weighting=trip_weighting) as stats:
         out = fn(*args)
     trace_s = time.perf_counter() - t0
 

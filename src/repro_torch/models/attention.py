@@ -212,6 +212,6 @@ def encode_cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig
     """Project the encoder's output once into cross-attention K/V."""
     b, se, _ = enc_out.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, se, kv, hd)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, se, kv, hd)
+    k = split_heads(dense(enc_out, p["wk"], "xattn_wk", None), kv)
+    v = split_heads(dense(enc_out, p["wv"], "xattn_wv", None), kv)
     return k, v

@@ -25,7 +25,7 @@ from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.attention import (attention_block,
                                           cross_attention_block,
                                           encode_cross_kv, init_attention)
-from repro_torch.models.layers import norm, remat_call
+from repro_torch.models.layers import dense, norm, remat_call
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.transformer import (_layer, _norm_init, _tokens,
                                             compute_dtype)
@@ -79,7 +79,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
     encoder's states.  ``remat`` checkpoints each layer."""
     _, s, d = frames.shape
     dt = frames.dtype
-    x = frames @ params["enc_in"].to(dt) \
+    x = dense(frames, params["enc_in"], "enc_in", None) \
         + _sinusoid(s, d, frames.device)[None].to(dt)
     positions = torch.arange(s, device=x.device)
 
@@ -139,7 +139,7 @@ def _decoder(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions,
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = norm(x, params["final_norm"], cfg.norm)
-    return (x @ params["embed"].T.to(x.dtype)).to(torch.float32)
+    return dense(x, params["embed"].T, "lm_head", None).to(torch.float32)
 
 
 def _prompt(cfg, params, tokens, frames, remat: bool = False):

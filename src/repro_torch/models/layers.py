@@ -22,7 +22,8 @@ from repro_torch.core.analog import AnalogWeights, analog_matmul
 from repro_torch.core.quant import calibrate_act_range, div_as_compiled
 from repro_torch.hw.profile import SiteSpecs
 from repro_torch.pytree import leaves
-from repro_torch.sharding.perf import local_attention, product_rows
+from repro_torch.sharding.perf import (contract_model, local_attention,
+                                      product_rows)
 
 NEG_INF = -1e30
 
@@ -60,7 +61,8 @@ def dense(x: torch.Tensor, w: torch.Tensor, name: str,
     if ctx is None or name not in ctx.weights:
         # both ends laid out by rows (the backward takes the gradient
         # to the rows' layout before it flattens it)
-        y = product_rows((product_rows(x).reshape(-1, x.shape[-1])
+        xr, w = contract_model(product_rows(x), w)
+        y = product_rows((xr.reshape(-1, x.shape[-1])
                           @ w.to(x.dtype)).reshape(*x.shape[:-1], w.shape[-1]))
     else:
         aw = ctx.weights[name]

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.layers import ACTIVATIONS, AnalogCtx, dense
-from repro_torch.sharding.perf import FLAGS, constraint, replicate_dims
+from repro_torch.sharding.perf import (FLAGS, constraint, grad_layout,
+                                      product_rows, replicate_dims)
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, n_layers: int,
@@ -139,7 +140,11 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
     dev = x.device
-    xt = x.reshape(t, d)
+    # the token rows by the batch rule (a sequence sharded over "model"
+    # would flatten into a strided shard), and their gradient, summed from
+    # the router and the dispatch, laid out as the rows before the view
+    # back to (B, S, d), which cannot unflatten rows split over every dim
+    xt = grad_layout(product_rows(x).reshape(t, d))
     gates, topw, topi = _route(xt, p["router"], k)
 
     # load-balance loss (Switch-style): E * sum_e f_e * p_e
@@ -157,7 +162,10 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # it; the dropped ones all land on the overflow row, which is cut off
     xbuf = xt.new_zeros((e * cap + 1, d))
     xbuf[dest] = xt[tok]
-    xe = xbuf[:e * cap].reshape(e, cap, d)
+    # its gradient arrives laid out like the experts' outputs (on a mesh,
+    # experts and capacity both sharded), which the flattened rows' view
+    # would turn into a strided shard: it is laid out as the buffer first
+    xe = grad_layout(xbuf[:e * cap].reshape(e, cap, d))
 
     if FLAGS.moe_dispatch_sharding:
         # the dispatched buffer on the expert-parallel layout, so the
@@ -195,7 +203,10 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if aux is not None:
         aux["moe/lb_loss"] = lb_loss
         aux["moe/drop_frac"] = 1.0 - keep.to(torch.float32).mean()
-    return y.reshape(b, s, d), lb_loss
+    # the gradient arrives sharded like the stream after the block (on a
+    # mesh, S over "model"), which the token rows' view would turn into a
+    # strided shard: it is laid out as the output first
+    return grad_layout(y.reshape(b, s, d)), lb_loss
 
 
 def moe_block_dense_ref(p: dict, x: torch.Tensor, cfg: ModelConfig

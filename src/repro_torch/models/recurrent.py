@@ -8,9 +8,13 @@ The shared primitive is the gated-decay state recurrence
     y_t = r_t @ S_t                              (mamba: current included)
 
 computed in chunks: within a chunk the pairwise decay factors are taken in
-log space with non-positive exponents, across chunks a Python loop carries
-the state (the reference's ``lax.scan``).  RWKV6's per-channel decay and
-Mamba2's per-head scalar decay (broadcast over dk) share the code path.
+log space with non-positive exponents, across chunks ``launch.op_stats.scan``
+carries the state (the reference's ``lax.scan``: a Python loop over every
+chunk, which the dry-run counts from a first, a middle and a last chunk on
+fake tensors).  RWKV6's per-channel decay and Mamba2's per-head scalar
+decay (broadcast over dk) share the code path.  On a mesh the models call
+it through ``sharding.perf.local_recurrence``, each rank on its own rows
+and heads.
 
 Every contraction of three operands is written out as explicit pairwise
 products summed over the contracted axis, so its order does not depend on
@@ -26,6 +30,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.op_stats import scan
+
 
 def _bonus(r: torch.Tensor, u: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor) -> torch.Tensor:
@@ -39,9 +45,9 @@ def chunked_decay_recurrence(
     k: torch.Tensor,               # (B, S, H, dk)
     v: torch.Tensor,               # (B, S, H, dv)
     log_w: torch.Tensor,           # (B, S, H, dk) log-decay, <= 0
+    s0: Optional[torch.Tensor] = None,  # (B, H, dk, dv) initial state
     *,
     u: Optional[torch.Tensor] = None,   # (H, dk) rwkv bonus; None: mamba
-    s0: Optional[torch.Tensor] = None,  # (B, H, dk, dv) initial state
     chunk: int = 32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y: (B, S, H, dv) in ``r``'s dtype, final state (B, H, dk,
@@ -71,9 +77,10 @@ def chunked_decay_recurrence(
 
     state = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=dev) \
         if s0 is None else s0
-    ys = []
-    for j in range(n_chunks):
-        rj, kj, vj, lwj = rc[:, j], kc[:, j], vc[:, j], lwc[:, j]
+
+    def body(state, xs, consts):
+        rj, kj, vj, lwj = xs
+        uf, = consts
         le = torch.cumsum(lwj, dim=1)                    # inclusive
         le_q = le if include_current else le - lwj       # queries' reference
         # pairwise decay W_t(ref) / W_s = exp(le_q_t - le_s) <= 1 for s <= t
@@ -92,8 +99,10 @@ def chunked_decay_recurrence(
         k_dec = kj * torch.exp(le_end - le)
         state = state * torch.exp(le_end[:, 0, :, :, None]) \
             + torch.einsum("bshd,bshv->bhdv", k_dec, vj)
-        ys.append(y)
-    y = torch.cat(ys, dim=1)[:, :s]
+        return state, y
+
+    state, y = scan(body, state, (rc, kc, vc, lwc), (uf,))
+    y = y[:, :s]
     return y.to(r.dtype), state
 
 

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import AnalogCtx, dense, rms_norm
 from repro_torch.models.recurrent import chunked_decay_recurrence, decay_step
-from repro_torch.sharding.perf import split_heads
+from repro_torch.sharding.perf import (grad_layout, local_recurrence,
+                                      split_heads)
 
 CONV_W = 4  # depthwise conv window
 
@@ -118,11 +119,12 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if decode:
         if s0 is None:
             s0 = torch.zeros((b, h, st, hd), dtype=f32, device=x.device)
-        y1, new_ssm = decay_step(r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], s0)
+        y1, new_ssm = local_recurrence(decay_step, r[:, 0], k[:, 0], v[:, 0],
+                                       log_w[:, 0], s0)
         y = y1[:, None]
     else:
-        y, new_ssm = chunked_decay_recurrence(r, k, v, log_w, s0=s0,
-                                              chunk=64)
+        y, new_ssm = local_recurrence(chunked_decay_recurrence, r, k, v,
+                                      log_w, s0, chunk=64)
 
     y = y + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, din) * F.silu(z)
@@ -227,12 +229,12 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if decode:
         if s0 is None:
             s0 = torch.zeros((b, h, hd, hd), dtype=f32, device=x.device)
-        y1, new_wkv = decay_step(r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], s0,
-                                 u=p["u"])
+        y1, new_wkv = local_recurrence(decay_step, r[:, 0], k[:, 0], v[:, 0],
+                                       log_w[:, 0], s0, u=p["u"])
         y = y1[:, None]
     else:
-        y, new_wkv = chunked_decay_recurrence(r, k, v, log_w, u=p["u"],
-                                              s0=s0, chunk=32)
+        y, new_wkv = local_recurrence(chunked_decay_recurrence, r, k, v,
+                                      log_w, s0, u=p["u"], chunk=32)
 
     # per-head group norm in float32 on y as the recurrence returned it
     # (r's dtype), eps 64e-5
@@ -240,7 +242,10 @@ def rwkv_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     mu = yh.mean(dim=-1, keepdim=True)
     var = ((yh - mu) ** 2).mean(dim=-1, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(b, s, d).to(dt) * p["ln_x_scale"].to(dt) \
+    # on a mesh the heads' gradient arrives with d split like the gate's,
+    # which the view back to heads cannot unflatten where the mesh does
+    # not divide them: it is laid out as the merged heads first
+    y = grad_layout(yh.reshape(b, s, d)).to(dt) * p["ln_x_scale"].to(dt) \
         + p["ln_x_bias"].to(dt)
     y = y * F.silu(g)
     out = dense(y, p["wo"], "rwkv_wo", ctx, aux)

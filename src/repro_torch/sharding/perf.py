@@ -18,13 +18,16 @@ The other helpers are the explicit actions the models take on a mesh
 where DTensor has no strategy, one too costly to plan, or one that
 leaves the work replicated (``launch/steps.py``): :func:`batch_rows` and
 :func:`product_rows` (rows laid out by the batch rule, before a product
-on both sides), :func:`split_heads` (gather a dim the heads cannot
-split), :func:`replicate_dims` (replicate a dim before an op that needs
-it whole), :func:`local_embedding` (the lookup in each rank's shard of
-the table), :func:`write_local` (an in-place cache write on each rank's
-shard, at :func:`shard_offset`) and :func:`local_attention` (attention
-on each rank's own rows, KV heads or cache positions).  Each leaves a
-plain tensor's path alone.
+on both sides), :func:`contract_model` (a product split over ``model``
+by its contraction or its columns), :func:`grad_layout` (a gradient laid
+out as its value before a view), :func:`split_heads` (gather a dim the
+heads cannot split), :func:`replicate_dims` (replicate a dim before an
+op that needs it whole), :func:`local_embedding` (the lookup in each
+rank's shard of the table), :func:`write_local` (an in-place cache write
+on each rank's shard, at :func:`shard_offset`), :func:`local_attention`
+(attention on each rank's own rows, KV heads, queries or cache
+positions) and :func:`local_recurrence` (the state recurrence on each
+rank's own rows and heads).  Each leaves a plain tensor's path alone.
 """
 
 from __future__ import annotations
@@ -257,10 +260,56 @@ def product_rows(x):
     if "model" in names and \
             x.placements[names.index("model")].is_shard(x.ndim - 1):
         spec[-1] = "model"
-    x = constraint(x, *spec)
-    if x.requires_grad:
-        x = _GradLayout.apply(x, tuple(x.placements))
-    return x
+    return grad_layout(constraint(x, *spec))
+
+
+def grad_layout(x):
+    """``x`` unchanged, its gradient laid out as ``x`` is (a gradient
+    arriving sharded along another dim would reach the view before it as
+    a strided shard).  A plain tensor, or one that records no gradient,
+    comes back as it is."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _GradLayout.apply(x, tuple(x.placements))
+
+
+def contract_model(x, w):
+    """``x`` (..., K) and ``w`` (K, N) laid out so that the product is
+    split over ``model``: where ``w``'s K is sharded there, so is ``x``'s
+    last dim (each rank multiplies its slice, a row-parallel product);
+    where only ``x``'s is, ``w``'s K is sliced to match; where neither
+    is, ``w``'s N is (a column-parallel product), unless it is already or
+    the mesh does not divide it.  Each is a local slice, no data moves,
+    and no value changes; plain tensors come back unchanged.  DTensor
+    would otherwise plan a product, or its backward's, whole on every
+    rank of ``model`` where that moves nothing, the same work repeated
+    on each (its cost model counts communication only)."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x, w
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names or w.device_mesh != mesh:
+        return x, w
+    i = names.index("model")
+    n = mesh.size(i)
+    if n == 1:
+        return x, w
+
+    def split(t, dim):
+        pl = list(t.placements)
+        pl[i] = Shard(dim)
+        return t.redistribute(mesh, tuple(pl))
+
+    k_w, k_x = w.placements[i].is_shard(0), x.placements[i].is_shard(
+        x.ndim - 1)
+    if k_w and not k_x and x.shape[-1] % n == 0:
+        return split(x, x.ndim - 1), w
+    if k_x and not k_w and w.shape[0] % n == 0:
+        return x, split(w, 0)
+    if not (k_w or k_x) and w.placements[i].is_replicate() \
+            and w.shape[1] % n == 0:
+        return x, split(w, 1)
+    return x, w
 
 
 class _GradLayout(torch.autograd.Function):
@@ -278,6 +327,13 @@ class _GradLayout(torch.autograd.Function):
     def backward(ctx, g):
         if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
             g = g.redistribute(g.device_mesh, ctx.placements)
+            local = g.to_local()
+            if not local.is_contiguous():
+                # a shard gathered from uneven pieces is a slice of the
+                # padded buffer, which the view before cannot take
+                g = DTensor.from_local(local.contiguous(), g.device_mesh,
+                                       ctx.placements, run_check=False,
+                                       shape=g.shape, stride=g.stride())
         return g, None
 
 
@@ -359,19 +415,24 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
     on its own block of rows, heads and cache positions, the DTensor
     result laid out as that block.
 
-    Attention is independent per (row, KV head): q (B, Sq, H, hd), k and v
-    (B, Skv, KV, hd) keep the batch sharding of the mesh dims that shard
-    q's batch or k's (a cache stays where it is), and the heads of a mesh
-    dim that shards q's heads when H divides it: with the KV heads too
-    where KV divides it (a rank's q heads then use exactly its KV heads),
-    else, where the mesh dim's size is a multiple of KV, each rank takes
-    the one KV head its q heads share.  A mesh dim that shards neither
-    but shards the cache's positions (the rules' context-parallel cache)
-    keeps them split: each rank attends its own positions (``attend``'s
-    ``kv_start``, and its ``partial`` softmax state), and the ranks fold
-    their states together, the running max by an all-reduce max and the
-    sums by all-reduce sums, as the online softmax folds its chunks.
-    Every other dim is whole on every rank.  DTensor would otherwise
+    Attention is independent per (row, KV head, query): q (B, Sq, H, hd),
+    k and v (B, Skv, KV, hd) keep the batch sharding of the mesh dims that
+    shard q's batch or k's (a cache stays where it is), and the heads of a
+    mesh dim that shards q's heads when H divides it: with the KV heads
+    too where KV divides it (a rank's q heads then use exactly its KV
+    heads), else, where the mesh dim's size is a multiple of KV, each rank
+    takes the one KV head its q heads share.  A mesh dim that shards
+    neither but shards the cache's positions (the rules' context-parallel
+    cache) keeps them split: each rank attends its own positions
+    (``attend``'s ``kv_start``, and its ``partial`` softmax state), and
+    the ranks fold their states together, the running max by an
+    all-reduce max and the sums by all-reduce sums, as the online softmax
+    folds its chunks.  A mesh dim that shards none of these splits the
+    heads the same way where H divides it, else the queries where Sq
+    does (``q_offset`` shifted to the rank's first query; K and V whole):
+    otherwise every rank of that dim would attend every head and query,
+    the same work replicated (GSPMD splits it).  Every other dim is whole
+    on every rank.  DTensor would otherwise
     propagate each of the online softmax's ops, and a product over a
     batch and a head dim both sharded plans its redistributions by a
     graph search, seconds per new shape.  Per-row ``q_offset``/``kv_len``
@@ -384,25 +445,46 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
     q_pl = tuple(q.placements) if isinstance(q, DTensor) else whole
     k_pl = tuple(k.placements) if isinstance(k, DTensor) else whole
     v_pl = tuple(v.placements) if isinstance(v, DTensor) else whole
-    heads, kv_heads = q.shape[2], k.shape[2]
-    pl, kv_pl, seq_dims, pick = [], [], [], None
+    # what is left to split on each rank after the mesh dims before
+    rows, heads, kv_heads, sq = q.shape[0], q.shape[2], k.shape[2], q.shape[1]
+    pl, kv_pl, seq_dims, q_dims, pick = [], [], [], [], None
     for i, p in enumerate(q_pl):
         n = mesh.size(i)
-        if (p.is_shard(0) or k_pl[i].is_shard(0)) and q.shape[0] % n == 0:
+        if (p.is_shard(0) or k_pl[i].is_shard(0)) and rows % n == 0:
             pl.append(Shard(0))
             kv_pl.append(Shard(0))
+            rows //= n
         elif p.is_shard(2) and heads % n == 0 and kv_heads % n == 0:
             pl.append(Shard(2))
             kv_pl.append(Shard(2))
+            heads, kv_heads = heads // n, kv_heads // n
         elif (p.is_shard(2) and heads % n == 0 and n % kv_heads == 0
               and pick is None):
             pl.append(Shard(2))
             kv_pl.append(Replicate())
             pick = (i, n // kv_heads)
+            heads, kv_heads = heads // n, 1
         elif k_pl[i].is_shard(1) and v_pl[i].is_shard(1):
             pl.append(Replicate())
             kv_pl.append(Shard(1))
             seq_dims.append(i)
+        elif n == 1:
+            pl.append(Replicate())
+            kv_pl.append(Replicate())
+        elif heads % n == 0 and kv_heads % n == 0:
+            pl.append(Shard(2))
+            kv_pl.append(Shard(2))
+            heads, kv_heads = heads // n, kv_heads // n
+        elif heads % n == 0 and n % kv_heads == 0 and pick is None:
+            pl.append(Shard(2))
+            kv_pl.append(Replicate())
+            pick = (i, n // kv_heads)
+            heads, kv_heads = heads // n, 1
+        elif sq > 1 and sq % n == 0:
+            pl.append(Shard(1))
+            kv_pl.append(Replicate())
+            q_dims.append(i)
+            sq //= n
         else:
             pl.append(Replicate())
             kv_pl.append(Replicate())
@@ -418,18 +500,21 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
             return x
         return block(x, row_pl if x.ndim else whole)
 
-    if pick is None:
-        kb, vb = block(k, kv_pl), block(v, kv_pl)
-    else:
-        # each rank's gradient covers its own KV head: a partial sum
+    # each rank's K/V gradient covers its own KV head or its own queries:
+    # a partial sum
+    part = set(q_dims) | ({pick[0]} if pick else set())
+    grad_pl = tuple(Partial() if d in part else p
+                    for d, p in enumerate(kv_pl))
+    kb, vb = block(k, kv_pl, grad_pl), block(v, kv_pl, grad_pl)
+    if pick is not None:
         i, per = pick
-        grad_pl = tuple(Partial() if d == i else p
-                        for d, p in enumerate(kv_pl))
-        kb, vb = block(k, kv_pl, grad_pl), block(v, kv_pl, grad_pl)
         j = mesh.get_coordinate()[i] // per
         kb, vb = kb[:, :, j:j + 1], vb[:, :, j:j + 1]
     args = (block(q, pl), kb, vb)
-    kw.update(q_offset=rows(q_offset), kv_len=rows(kv_len))
+    q_offset = rows(q_offset)
+    if q_dims:
+        q_offset = q_offset + shard_offset(q.shape[1], mesh, pl, 1)
+    kw.update(q_offset=q_offset, kv_len=rows(kv_len))
     if not seq_dims:
         out = attend(*args, **kw)
     else:
@@ -447,6 +532,79 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
         out = finish_attention(l, acc, q.dtype)
     return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
                               shape=q.shape, stride=_contiguous(q.shape))
+
+
+def local_recurrence(fn, r, k, v, log_w, s0, *, u=None, **kw):
+    """``fn(r, k, v, log_w, s0, u=u, **kw)``, ``fn`` one of
+    ``models.recurrent``'s ``chunked_decay_recurrence`` (r/k/v/log_w
+    (B, S, H, d)) or ``decay_step`` ((B, H, d)), run by each rank on its
+    own block of rows and heads, the DTensor results (y, state) laid out
+    as that block.
+
+    The recurrence is independent per (row, head), as attention is: r, k,
+    v, log_w and the state ``s0`` (B, H, dk, dv) keep the batch sharding
+    of each mesh dim that shards one's rows and divides B, and the head
+    sharding of each other mesh dim that shards one's heads, or shards
+    nothing, and divides H (``u`` (H, dk) split the same way: a mesh dim
+    left whole would repeat every rank's work); every other dim is
+    gathered whole, as :func:`split_heads` gathers heads the mesh cannot
+    divide.
+    DTensor would otherwise propagate every op of every chunk, and the
+    contractions over a batch and a head dim both sharded meet a strided
+    shard, whose propagation reads shard offsets from a tensor (which a
+    fake tensor cannot give).  Each rank's arithmetic is the plain
+    path's on its block; a plain call (no DTensor) goes straight
+    through."""
+    ins = (r, k, v, log_w, s0, u)
+    dts = [t for t in ins if isinstance(t, DTensor)]
+    if not dts:
+        return fn(r, k, v, log_w, s0, u=u, **kw)
+    mesh = dts[0].device_mesh
+    hdim = r.ndim - 2
+    bsz, heads = r.shape[0], r.shape[hdim]
+    rows_left, heads_left = bsz, heads      # per rank, after the dims before
+    pl = []
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        dims = [t.placements[i].dim for t in (r, k, v, log_w, s0)
+                if isinstance(t, DTensor) and t.placements[i].is_shard()]
+        heads_at = [d for t, d in ((r, hdim), (k, hdim), (v, hdim),
+                                   (log_w, hdim), (s0, 1))
+                    if isinstance(t, DTensor) and t.placements[i].is_shard(d)]
+        if 0 in dims and rows_left % n == 0:
+            pl.append("rows")
+            rows_left //= n
+        elif heads_left % n == 0 and (heads_at or not dims and n > 1):
+            pl.append("heads")
+            heads_left //= n
+        else:
+            pl.append(None)
+
+    def place(dim_rows, dim_heads):
+        return tuple(Shard(dim_rows) if p == "rows" else
+                     Shard(dim_heads) if p == "heads" else Replicate()
+                     for p in pl)
+
+    def block(t, placements, grad_placements=None):
+        return _as_dtensor(t, mesh).redistribute(mesh, placements).to_local(
+            grad_placements=grad_placements)
+
+    x_pl, s_pl = place(0, hdim), place(0, 1)
+    args = [block(t, x_pl) for t in (r, k, v, log_w)]
+    args.append(None if s0 is None else block(s0, s_pl))
+    if u is not None:
+        # each rank's gradient covers its own rows: a partial sum
+        u_grad = tuple(Partial() if p == "rows" else
+                       Shard(0) if p == "heads" else Replicate() for p in pl)
+        u = block(u, tuple(Shard(0) if p == "heads" else Replicate()
+                           for p in pl), u_grad)
+    y, state = fn(*args, u=u, **kw)
+    y_shape = tuple(v.shape)
+    s_shape = (bsz, heads, r.shape[-1], v.shape[-1])
+    return (DTensor.from_local(y.contiguous(), mesh, x_pl, run_check=False,
+                               shape=y_shape, stride=_contiguous(y_shape)),
+            DTensor.from_local(state, mesh, s_pl, run_check=False,
+                               shape=s_shape, stride=_contiguous(s_shape)))
 
 
 def _contiguous(shape) -> tuple:

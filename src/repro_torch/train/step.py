@@ -30,6 +30,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import true_div
 from repro_torch.interop import params_from_numpy
+from repro_torch.launch.op_stats import trips
 from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw
 from repro_torch.pytree import (flatten_with_path, leaves, tree_map,
@@ -135,11 +136,13 @@ def train_step_fn(
                 p, dtype=torch.float32), state.params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves(state.params)[0].device)
-            for mb in split_micro(batch):
+            for mb in trips(split_micro(batch)):
                 l, _, g = loss_and_grads(cfg, state.params, mb)
                 tree_map(lambda acc, x: acc.add_(x), grads, g)
                 loss = loss + l
-                del g       # free it before the next microbatch's backward
+                # free them before the next microbatch's backward; each
+                # microbatch then starts from the same live storage
+                del l, _, g
             grads = tree_map(lambda g: true_div(g, microbatches), grads)
             loss = true_div(loss, microbatches)
 

@@ -242,6 +242,26 @@ ROPE_BODY = MODEL_HELPERS + textwrap.dedent("""
         cat = full(torch.cat([-qd[..., half:], qd[..., :half]], dim=-1))
         out[label] = {"rope": bool(torch.equal(got, want)),
                       "rotate_half": bool(torch.equal(cat, want_cat))}
+    # attention where the "model" dim divides neither the rows nor the
+    # heads (2 heads, 4 ranks): each rank attends its own queries
+    # (sharding.perf.local_attention), K and V's gradients partial sums
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models.layers import streaming_attention
+    qmesh = init_device_mesh("cpu", (1, WS), mesh_dim_names=("data", "model"))
+    g = torch.Generator().manual_seed(6)
+    qkv = [torch.randn((2, 8, h, 16), generator=g) for h in (2, 1, 1)]
+    w = torch.randn((2, 8, 2, 16), generator=g)
+    ref = [t.clone().requires_grad_(True) for t in qkv]
+    o1 = streaming_attention(*ref, q_offset=0, causal=True, window=None)
+    (o1 * w).sum().backward()
+    dts = [distribute_tensor(t, qmesh, [Replicate(), Replicate()])
+           .requires_grad_(True) for t in qkv]
+    o2 = streaming_attention(*dts, q_offset=0, causal=True, window=None)
+    (o2.full_tensor() * w).sum().backward()
+    out["attention"] = {
+        "placements": [str(p) for p in o2.placements],
+        "out_rel": rel(o2, o1),
+        "grad_rel": max(rel(d.grad, r.grad) for d, r in zip(dts, ref))}
     report(**out)
     """)
 
@@ -527,7 +547,20 @@ def test_every_variant_equals_baseline(jobs, arch):
 
 def test_rope_rotate_half_on_a_model_sharded_q_is_exact(jobs):
     r = jobs["rope"]
-    assert all(v["rope"] and v["rotate_half"] for v in r.values()), r
+    assert all(r[k]["rope"] and r[k]["rotate_half"]
+               for k in ("heads", "within_heads", "seq")), r
+
+
+def test_attention_split_by_queries_matches_unsharded(jobs):
+    """A (1, 4) mesh whose ``model`` dim divides neither the batch nor
+    the 2 heads: ``local_attention`` splits the queries over it, and the
+    output and the gradients of q, k and v equal the unsharded
+    attention's within ``REL`` (K and V's gradients are partial sums
+    over the ranks' queries)."""
+    r = jobs["rope"]["attention"]
+    print(r)
+    assert r["placements"][1] == "S(1)", r      # "model": the queries
+    assert r["out_rel"] <= REL and r["grad_rel"] <= REL, r
 
 
 @pytest.mark.parametrize("n", [3, 4])

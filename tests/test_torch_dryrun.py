@@ -2,14 +2,15 @@
 ``roofline``) against the reference's (``repro.launch.hlo_stats``,
 ``dryrun``, ``roofline``) on the CPU.
 
-The reference's compiled cells run in one JAX subprocess on 8 host
-devices (``--xla_force_host_platform_device_count=8``, as
+The reference's compiled cells run in JAX subprocesses on 8 host devices
+(``--xla_force_host_platform_device_count=8``, as
 ``tests/test_distribution.py`` runs its meshes): importing
 ``repro.launch.dryrun`` rewrites ``XLA_FLAGS`` to 512 devices, which
 must not reach this process's later JAX tests.  ``hlo_stats`` and
-``roofline`` are plain Python and are imported here.  The port's cells
-run here on a fake process group (``dryrun.fake_group``) over fake
-tensors.
+``roofline`` are plain Python and are imported here.  The port's smoke
+cells run in subprocesses of their own, each on a fake process group
+(``dryrun.fake_group``) over fake tensors, all started with the module so
+that they run beside its other tests.
 
 * ``should_skip`` and the record's config fields equal the reference's
   for every (arch, shape).
@@ -19,14 +20,21 @@ tensors.
   and 8 ranks in both ``replica_groups`` forms against the same
   collective on a fake group.
 * The 16 x 16 product counts one device's flops and two all-gathers.
-* gemma-2b and qwen1.5-4b smoke, ``ShapeConfig(kind, 32, 8, kind)``,
-  train at 2 microbatches, against the reference's compiled HLO: on a
-  1 x 1 mesh prefill and decode flops equal, train three quarters of
-  the reference's (its forward runs twice, ``test_smoke_1x1``);
-  on the (2, 4) mesh the arguments' bytes equal, prefill and decode
-  flops within 10%, train flops exactly the 1 x 1 count over 8, and
-  collectives present exactly where the reference has them.
+* Every arch's smoke config, ``ShapeConfig(kind, 32, 8, kind)``, train
+  at 2 microbatches, against the reference's compiled HLO: on a 1 x 1
+  mesh prefill and decode flops equal, train three quarters of the
+  reference's (its forward runs twice, ``test_smoke_1x1``), arguments
+  equal, no collective, and where an arch departs the gap equal to a
+  formula from the shapes; on the (2, 4) mesh every cell counts, the
+  arguments' bytes equal, train flops exactly the 1 x 1 count over 8,
+  prefill and decode flops within 10%, and collectives present exactly
+  where the reference has them; on a ("pod", "data", "model") 2 x 2 x 2
+  mesh qwen1.5-4b's and arctic-480b's arguments equal and collectives
+  where the reference has them.
 * zamba2 and rwkv smoke: the flops gap to the reference, from the shapes.
+* The trip-weighted count (``op_stats.trips``, ``op_stats.scan``) equal
+  to every step counted: rwkv's and zamba2's smoke train step on both
+  meshes, and the chunked recurrence over six chunks.
 * The roofline's functions equal the reference's on the same records.
 * ``run_cell`` leaves no process group and refuses under one.
 * qwen1.5-4b x decode_32k at full width on the 16 x 16 pod: the
@@ -60,15 +68,27 @@ from repro_torch.launch import steps as ST
 from repro_torch.sharding import rules
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMOKE = ("gemma-2b", "qwen1.5-4b")
+RECURRENT = ("zamba2-7b", "rwkv6-3b")
+#: every arch but the recurrent two, whose prefill and decode gaps
+#: ``test_recurrence_and_branch_gaps`` holds
+SMOKE = tuple(a for a in ARCH_IDS if a not in RECURRENT)
 KINDS = ("train", "prefill", "decode")
 MESHES = {"1x1": (1, 1), "2x4": (2, 4)}
-RECURRENT = ("zamba2-7b", "rwkv6-3b")
+AXES = ("data", "model")
+#: the axes of ``make_production_mesh(multi_pod=True)`` on 8 devices
+POD = {"2x2x2": (2, 2, 2)}
+POD_AXES = ("pod", "data", "model")
+POD_ARCHS = ("qwen1.5-4b", "arctic-480b")
 FLOPS_REL = 0.10            # the (2, 4) mesh's flops against the reference
 
 REF_BODY = r'''
 import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+# LLVM's optimisation changes the machine code only, not the compiled HLO
+# the counts read (the same flops, collectives and arguments), and halves
+# the compile time
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_llvm_disable_expensive_passes=true")
 import collections, json, re
 import jax
 import numpy as np
@@ -126,9 +146,9 @@ def split(txt):
     return dict(out)
 
 
-def cell(arch, kind, dims):
-    devs = np.array(jax.devices()[:dims[0] * dims[1]]).reshape(dims)
-    mesh = jax.sharding.Mesh(devs, ("data", "model"))
+def cell(arch, kind, dims, axes):
+    devs = np.array(jax.devices()[:int(np.prod(dims))]).reshape(dims)
+    mesh = jax.sharding.Mesh(devs, tuple(axes))
     kw = {"microbatches": 2} if kind == "train" else {}
     with mesh:
         fn, structs = build_step(get_smoke_config(arch), mesh,
@@ -151,41 +171,107 @@ for a in ARCH_IDS:
                       "active_params": cfg.active_param_count()}
     for s, sh in SHAPES.items():
         out["skip"][a + "|" + s] = dryrun.should_skip(cfg, sh)
-for a in SMOKE:
-    for kind in KINDS:
-        for name, dims in MESHES.items():
-            out["cells"][f"{a}|{kind}|{name}"] = cell(a, kind, dims)
-for a in RECURRENT:
-    for kind in ("prefill", "decode"):
-        out["cells"][f"{a}|{kind}|1x1"] = cell(a, kind, (1, 1))
+for a, kind, name, dims, axes in JOBS:
+    out["cells"][f"{a}|{kind}|{name}"] = cell(a, kind, dims, axes)
 print("REF " + json.dumps(out))
 '''
 
+PORT_BODY = r'''
+import json, math
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.config import ShapeConfig
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import dryrun
 
-@pytest.fixture(scope="module")
-def ref_proc():
-    """The reference's side, started at once so that it runs beside the
-    port's cells."""
-    code = (f"SMOKE, KINDS, RECURRENT = {SMOKE!r}, {KINDS!r}, "
-            f"{RECURRENT!r}\nMESHES = {MESHES!r}\n" + REF_BODY)
+out = {}
+for name, dims, axes, cells in GROUPS:
+    with dryrun.fake_group(math.prod(dims)):
+        mesh = init_device_mesh("cpu", dims, mesh_dim_names=axes)
+        for key, arch, kind, seq, mb, weighting in cells:
+            out[key] = dryrun.cell_stats(
+                get_smoke_config(arch), ShapeConfig(kind, seq, 8, kind),
+                mesh, microbatches=mb if kind == "train" else None,
+                trip_weighting=weighting)
+print("PORT " + json.dumps(out))
+'''
+
+
+def _ref_jobs():
+    """The reference's cells in three subprocesses of about equal work."""
+    one = [(a, k, "1x1", (1, 1), AXES) for a in ARCH_IDS for k in KINDS]
+    two = [(a, k, "2x4", (2, 4), AXES) for a in ARCH_IDS for k in KINDS]
+    pod = [(a, k, n, dims, POD_AXES) for a in POD_ARCHS for k in KINDS
+           for n, dims in POD.items()]
+    return [one, two[:15] + pod, two[15:]]
+
+
+def _port_groups():
+    """The port's cells, ``(mesh name, dims, axes, [(key, arch, kind,
+    seq, microbatches, trip weighting)])`` a subprocess, in six
+    subprocesses of about equal work: every arch on both meshes, the
+    three-axis mesh, and each recurrence's train step counted step by
+    step, beside its trip-weighted smoke cell."""
+    def smoke(name, archs):
+        return [(f"{a}|{k}|{name}", a, k, 32, 2, True)
+                for a in archs for k in KINDS]
+
+    def every_step(name):
+        return [(f"{a}|train|{name}|every step", a, "train", 32, 2, False)
+                for a in RECURRENT]
+
+    half = len(ARCH_IDS) // 2
+    return [
+        [("1x1", (1, 1), AXES, smoke("1x1", ARCH_IDS[:half]))],
+        [("1x1", (1, 1), AXES, smoke("1x1", ARCH_IDS[half:]))],
+        [("2x4", (2, 4), AXES, smoke("2x4", ARCH_IDS[:half + 1]))],
+        [("2x4", (2, 4), AXES, smoke("2x4", ARCH_IDS[half + 1:]))],
+        [("2x2x2", POD["2x2x2"], POD_AXES, smoke("2x2x2", POD_ARCHS))],
+        [("1x1", (1, 1), AXES, every_step("1x1")),
+         ("2x4", (2, 4), AXES, every_step("2x4"))],
+    ]
+
+
+def _start(code: str):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
-    yield proc
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+
+
+def _collect(procs, tag: str) -> list:
+    out = []
+    for proc in procs:
+        stdout, err = proc.communicate(timeout=600)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith(tag)]
+        assert proc.returncode == 0 and lines, err[-4000:]
+        out.append(json.loads(lines[-1][len(tag):]))
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def procs():
+    """Both sides' subprocesses, started with the module so that they run
+    beside its tests that need neither."""
+    ref = [_start(f"KINDS = {KINDS!r}\nJOBS = {jobs!r}\n" + REF_BODY)
+           for jobs in _ref_jobs()]
+    port = [_start(f"GROUPS = {groups!r}\n" + PORT_BODY)
+            for groups in _port_groups()]
+    yield {"ref": ref, "port": port}
+    for proc in ref + port:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 @pytest.fixture(scope="module")
-def ref(ref_proc):
-    out, err = ref_proc.communicate(timeout=600)
-    lines = [ln for ln in out.splitlines() if ln.startswith("REF ")]
-    assert ref_proc.returncode == 0 and lines, err[-4000:]
-    return json.loads(lines[-1][4:])
+def ref(procs):
+    parts = _collect(procs["ref"], "REF ")
+    out = parts[0]
+    for part in parts[1:]:
+        out["cells"].update(part["cells"])
+    return out
 
 
 def _cell_record(arch, kind, cfg, mesh_name, stats) -> dict:
@@ -199,52 +285,25 @@ def _cell_record(arch, kind, cfg, mesh_name, stats) -> dict:
 
 
 @pytest.fixture(scope="module")
-def port(ref_proc):
-    """The port's smoke cells: {"arch|kind|mesh": record}."""
+def counted(procs):
+    """Every record the port's subprocesses counted, by key."""
     out = {}
-    for name, dims in MESHES.items():
-        with dryrun.fake_group(dims[0] * dims[1]):
-            mesh = make_debug_mesh(*dims, device_type="cpu")
-            archs = SMOKE + (RECURRENT if name == "1x1" else ())
-            for arch in archs:
-                cfg = get_smoke_config(arch)
-                kinds = KINDS if arch in SMOKE else ("prefill", "decode")
-                for kind in kinds:
-                    stats = dryrun.cell_stats(
-                        cfg, ShapeConfig(kind, 32, 8, kind), mesh,
-                        microbatches=2 if kind == "train" else None)
-                    out[f"{arch}|{kind}|{name}"] = _cell_record(
-                        arch, kind, cfg, name, stats)
+    for part in _collect(procs["port"], "PORT "):
+        out.update(part)
     return out
 
 
-# ---------------------------------------------------------------------------
-# should_skip and the record's config fields
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_skip_reasons_and_meta_equal_the_reference(port, ref, arch):
-    cfg = get_config(arch)
-    for s, shape in SHAPES.items():
-        assert dryrun.should_skip(cfg, shape) == ref["skip"][f"{arch}|{s}"]
-    assert {"params": cfg.param_count(),
-            "active_params": cfg.active_param_count()} == ref["meta"][arch]
-    assert {s: [sh.kind, sh.seq_len, sh.global_batch]
-            for s, sh in SHAPES.items()} == ref["shapes"]
-
-
-def test_skipped_record_has_the_reference_keys():
-    rec = dryrun.run_cell("qwen1.5-4b", "long_500k", multi_pod=False)
-    shape = SHAPES["long_500k"]
-    assert rec == {
-        "arch": "qwen1.5-4b", "shape": "long_500k", "mesh": "pod16x16",
-        "variant": "baseline", "kind": shape.kind,
-        "params": get_config("qwen1.5-4b").param_count(),
-        "active_params": get_config("qwen1.5-4b").active_param_count(),
-        "seq_len": shape.seq_len, "global_batch": shape.global_batch,
-        "skipped": dryrun.should_skip(get_config("qwen1.5-4b"), shape)}
-    assert not dist.is_initialized()
+@pytest.fixture(scope="module")
+def port(counted):
+    """The port's smoke cells: {"arch|kind|mesh": record}."""
+    out = {}
+    for key, stats in counted.items():
+        parts = key.split("|")
+        if len(parts) == 3:
+            arch, kind, name = parts
+            out[key] = _cell_record(arch, kind, get_smoke_config(arch),
+                                    name, stats)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -382,156 +441,6 @@ def test_product_on_the_pod_counts_one_device():
                                "all-gather": 2.0}
 
 
-# ---------------------------------------------------------------------------
-# smoke cells against the reference's compiled HLO
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("arch", SMOKE)
-def test_smoke_1x1(ref, port, arch, kind):
-    """On one device every dot of the step is counted once.  Prefill and
-    decode equal the reference's dot flops.  The reference's compiled
-    train step runs its layer scan's forward twice, once for the loss and
-    once linearized for the backward (its dots' op_names: qwen1.5-4b's
-    ``primal`` and ``jvp`` splits are equal), and every dot's backward
-    costs twice its forward: it counts 4 forwards' flops.  The port runs
-    the forward once (autograd keeps what the backward needs), 3
-    forwards' flops: three quarters of the reference's, exactly.  The
-    gap and the reference's split by op_name are printed."""
-    r, p = ref["cells"][f"{arch}|{kind}|1x1"], port[f"{arch}|{kind}|1x1"]
-    got = p["flops_per_device"]
-    if kind == "train":
-        print(f"{arch} train 1x1: port {got:.0f}, reference {r['flops']:.0f}"
-              f" (by op_name {r['split']}); gap "
-              f"{(r['flops'] - got) / r['flops']:.4f} of the reference")
-        assert got == 0.75 * r["flops"]
-    else:
-        assert got == r["flops"]
-    assert p["memory_analysis"]["argument_size_in_bytes"] == r["arg"]
-    assert p["total_collective_bytes"] == r["coll"] == 0
-
-
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("arch", SMOKE)
-def test_smoke_2x4(ref, port, arch, kind):
-    """The (2, 4) mesh: the arguments' bytes equal the reference's;
-    prefill and decode flops per device within 10% of the reference's;
-    collectives present where the reference has them.  Train: the port's
-    per-device flops are its 1 x 1 flops over the 8 devices exactly (no
-    work replicated), three quarters of the reference's 1 x 1 count
-    spread evenly (``test_smoke_1x1``); the reference's own (2, 4) count
-    is printed beside it, with its split by op_name (GSPMD shards its
-    loss forward less evenly than the linearized copy)."""
-    r, p = ref["cells"][f"{arch}|{kind}|2x4"], port[f"{arch}|{kind}|2x4"]
-    got = p["flops_per_device"]
-    print(f"{arch} {kind} 2x4: port flops/device {got:.0f}, reference "
-          f"{r['flops']:.0f}; collective bytes port "
-          f"{p['total_collective_bytes']:.0f}, reference {r['coll']:.0f}; "
-          f"counts port {p['collective_counts']}, reference {r['counts']}")
-    assert p["memory_analysis"]["argument_size_in_bytes"] == r["arg"]
-    assert p["n_devices"] == 8
-    if kind == "train":
-        one = port[f"{arch}|train|1x1"]["flops_per_device"]
-        r1 = ref["cells"][f"{arch}|train|1x1"]
-        print(f"  split of the reference's (2, 4) dots: {r['split']}")
-        assert got * 8 == one == 0.75 * r1["flops"]
-    else:
-        assert abs(got - r["flops"]) <= FLOPS_REL * r["flops"]
-    assert p["total_collective_bytes"] > 0 and r["coll"] > 0
-
-
-def _branch_flops(cfg, b, s, kv_len) -> float:
-    """Dot flops of one application of zamba2's shared attention + MLP
-    block on (b, s) tokens against ``kv_len`` key positions."""
-    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                        cfg.d_ff)
-    proj = 2 * b * s * d * (2 * h * hd + 2 * kv * hd)
-    mlp = 3 * 2 * b * s * d * ff
-    attn = 2 * 2 * b * h * s * kv_len * hd
-    return proj + mlp + attn
-
-
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrence_and_branch_gaps(ref, port, arch, kind):
-    """The two departures of ``op_stats``'s docstring, held from the
-    shapes (B = 8, S = 32, L layers).
-
-    rwkv: the reference's recurrence einsums are dots to XLA.  Per layer
-    and chunk of C positions, ``bthd,bshd,btshd->bhts`` contracts dk:
-    2·B·H·C·C·dk; the current-token bonus ``bthd,hd,bthd,bthv->bthv``
-    contracts dk once a position: 2·B·S·H·dk (in decode, one position:
-    2·B·H·dk, and no chunk).  The port writes both as products and sums.
-
-    zamba2: the reference counts its per-layer conditional at the larger
-    branch, the shared attention + MLP block on every layer, where the
-    port counts the layers that take it (i % attn_every == attn_every -
-    1); and Mamba2's ``bthd,bshd,btshd->bhts`` contracts the state
-    (2·B·H·C·C·st a layer in prefill, C = min(64, S))."""
-    cfg = get_smoke_config(arch)
-    b, s, n_layers = 8, 32, cfg.n_layers
-    r, p = ref["cells"][f"{arch}|{kind}|1x1"], port[f"{arch}|{kind}|1x1"]
-    gap = r["flops"] - p["flops_per_device"]
-    if cfg.rwkv:
-        h, dk = cfg.n_heads, cfg.d_model // cfg.n_heads
-        if kind == "prefill":
-            c = min(32, s)
-            want = n_layers * (-(-s // c) * 2 * b * h * c * c * dk
-                               + 2 * b * s * h * dk)
-        else:
-            want = n_layers * 2 * b * h * dk
-    else:
-        apps = sum(1 for i in range(n_layers)
-                   if i % cfg.attn_every == cfg.attn_every - 1)
-        if kind == "prefill":
-            c = min(64, s)
-            want = ((n_layers - apps) * _branch_flops(cfg, b, s, s)
-                    + n_layers * -(-s // c) * 2 * b * cfg.ssm_heads * c * c
-                    * cfg.ssm_state)
-        else:
-            want = (n_layers - apps) * _branch_flops(cfg, b, 1, s)
-    print(f"{arch} {kind}: reference {r['flops']:.0f}, port "
-          f"{p['flops_per_device']:.0f}, gap {gap:.0f}, from the shapes "
-          f"{want:.0f}")
-    assert gap == want > 0
-
-
-# ---------------------------------------------------------------------------
-# roofline
-# ---------------------------------------------------------------------------
-
-
-def test_roofline_equals_the_reference(port):
-    hw = roofline.Hardware(J_roof.PEAK_FLOPS, J_roof.HBM_BW, J_roof.ICI_BW)
-    recs = [dict(r) for r in port.values()]
-    recs += [{"arch": "gemma-2b", "shape": "train_4k", "mesh": "pod16x16",
-              "error": "RuntimeError: boom", "traceback": "..."},
-             {"arch": "qwen1.5-4b", "shape": "long_500k",
-              "mesh": "pod16x16", "skipped": "no"},
-             {"arch": "not-an-arch", "kind": "decode"}]
-    rows_p, rows_j = [], []
-    for rec in recs:
-        e_p, e_j = roofline._enrich(dict(rec)), J_roof._enrich(dict(rec))
-        assert e_p == e_j
-        if "flops_per_device" not in rec and "error" not in rec \
-                and "skipped" not in rec:
-            continue
-        row_p, row_j = roofline.roofline_row(e_p, hw), \
-            J_roof.roofline_row(e_j)
-        assert row_p == row_j
-        if row_p is not None:
-            assert roofline.model_flops(e_p) == J_roof.model_flops(e_j)
-            assert roofline.analytic_memory_bytes(e_p) == \
-                J_roof.analytic_memory_bytes(e_j)
-            rows_p.append(row_p)
-            rows_j.append(row_j)
-    assert rows_p and len(rows_p) == len(rows_j)
-    for mesh in ("1x1", "2x4"):
-        assert roofline.format_table(rows_p, mesh) == \
-            J_roof.format_table(rows_j, mesh)
-
-
 def test_h100_rates():
     assert roofline.H100 == roofline.Hardware(989e12, 3.35e12, 50e9)
 
@@ -590,3 +499,316 @@ def test_full_width_decode_cell():
           f"bytes/device {rec['total_collective_bytes']:.4e}, useful "
           f"{row['useful_ratio']:.4f}")
     assert 0.05 < row["useful_ratio"] <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# should_skip and the record's config fields
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_skip_reasons_and_meta_equal_the_reference(ref, arch):
+    cfg = get_config(arch)
+    for s, shape in SHAPES.items():
+        assert dryrun.should_skip(cfg, shape) == ref["skip"][f"{arch}|{s}"]
+    assert {"params": cfg.param_count(),
+            "active_params": cfg.active_param_count()} == ref["meta"][arch]
+    assert {s: [sh.kind, sh.seq_len, sh.global_batch]
+            for s, sh in SHAPES.items()} == ref["shapes"]
+
+
+def test_skipped_record_has_the_reference_keys():
+    rec = dryrun.run_cell("qwen1.5-4b", "long_500k", multi_pod=False)
+    shape = SHAPES["long_500k"]
+    assert rec == {
+        "arch": "qwen1.5-4b", "shape": "long_500k", "mesh": "pod16x16",
+        "variant": "baseline", "kind": shape.kind,
+        "params": get_config("qwen1.5-4b").param_count(),
+        "active_params": get_config("qwen1.5-4b").active_param_count(),
+        "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+        "skipped": dryrun.should_skip(get_config("qwen1.5-4b"), shape)}
+    assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# smoke cells against the reference's compiled HLO
+# ---------------------------------------------------------------------------
+
+
+def _whisper_unread_bytes(mesh) -> int:
+    """Rank 0's bytes, by the rules on ``mesh`` (a ``MeshShape``), of the
+    whisper parameters a decode step does not read: the encoder, its
+    input projection and final norm, and the cross-attention K/V
+    projections (the cache holds the encoder's K/V).  ``jax.jit`` prunes
+    unused arguments, so the reference's arguments leave them out."""
+    cfg = get_smoke_config("whisper-large-v3")
+    params = get_model(cfg).init_params(cfg, 0, device="meta")
+    shape = ShapeConfig("decode", 32, 8, "decode")
+    structs = (params, ST.input_specs(cfg, shape))
+    specs = rules.spec_leaves(
+        ST.input_shardings(cfg, mesh, "decode", structs)[0], params)
+    unread = ("encoder/", "enc_in", "enc_final_norm/", "decoder/xattn/wk",
+              "decoder/xattn/wv")
+    return sum(math.prod(rules.local_shape(t.shape, specs[n], mesh))
+               * t.element_size() for n, t in flatten_with_path(params)
+               if n.startswith(unread))
+
+
+def _whisper_train_excess() -> float:
+    """The port's whisper train flops above three quarters of the
+    reference's at 1 x 1: the encoder's input projection (8 rows x
+    ``cross_kv_len`` frames x d x d) takes no gradient for its input, the
+    frames, so its backward costs one forward, not two, and the
+    reference computes its forward once for the loss and the linearized
+    copy (the one product, ``jvp`` by op_name, that its ``primal`` split
+    lacks): it counts that product twice, three quarters of which is 1.5,
+    where the port counts it twice."""
+    cfg = get_smoke_config("whisper-large-v3")
+    return 0.5 * 2 * 8 * cfg.cross_kv_len * cfg.d_model * cfg.d_model
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", SMOKE)
+def test_smoke_1x1(ref, port, arch, kind):
+    """On one device every dot of the step is counted once.  Prefill and
+    decode equal the reference's dot flops.  The reference's compiled
+    train step runs its layer scan's forward twice, once for the loss and
+    once linearized for the backward (its dots' op_names: qwen1.5-4b's
+    ``primal`` and ``jvp`` splits are equal), and every dot's backward
+    costs twice its forward: it counts 4 forwards' flops.  The port runs
+    the forward once (autograd keeps what the backward needs), 3
+    forwards' flops: three quarters of the reference's, exactly.  The
+    gap and the reference's split by op_name are printed.  The arguments'
+    bytes are equal and there is no collective.  One arch departs:
+    whisper's train counts :func:`_whisper_train_excess` more, and its
+    decode step's arguments hold the parameters it does not read
+    (:func:`_whisper_unread_bytes`), which the reference prunes."""
+    r, p = ref["cells"][f"{arch}|{kind}|1x1"], port[f"{arch}|{kind}|1x1"]
+    got = p["flops_per_device"]
+    whisper = arch == "whisper-large-v3"
+    if kind == "train":
+        print(f"{arch} train 1x1: port {got:.0f}, reference {r['flops']:.0f}"
+              f" (by op_name {r['split']}); gap "
+              f"{(r['flops'] - got) / r['flops']:.4f} of the reference")
+        assert got - 0.75 * r["flops"] == (
+            _whisper_train_excess() if whisper else 0)
+    else:
+        assert got == r["flops"]
+    arg = p["memory_analysis"]["argument_size_in_bytes"]
+    unread = _whisper_unread_bytes(MeshShape(AXES, (1, 1))) \
+        if whisper and kind == "decode" else 0
+    assert arg - r["arg"] == unread
+    assert p["total_collective_bytes"] == r["coll"] == 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_smoke_2x4(ref, port, arch, kind):
+    """The (2, 4) mesh: every cell counts; the arguments' bytes equal the
+    reference's (whisper's decode step: but for the local shards of the
+    parameters it does not read, ``test_smoke_1x1``); collectives present
+    where the reference has them.  Train: the port's per-device flops are
+    its 1 x 1 flops over the 8 devices exactly (no work replicated), for
+    the archs without a 1 x 1 gap three quarters of the reference's 1 x 1
+    count spread evenly (``test_smoke_1x1``); the reference's own (2, 4)
+    count is printed beside it, with its split by op_name (GSPMD shards
+    its loss forward less evenly than the linearized copy).  Prefill and
+    decode flops per device within 10% of the reference's, less, for the
+    Mamba2 hybrid, its 1 x 1 gap spread over the 8 devices
+    (``test_recurrence_and_branch_gaps``).  rwkv's reference repeats part
+    of its prefill and decode work on this mesh (its (2, 4) count x 8
+    exceeds its 1 x 1 count); the port's count is then held to its own
+    1 x 1 count over the 8 devices, no work replicated."""
+    r, p = ref["cells"][f"{arch}|{kind}|2x4"], port[f"{arch}|{kind}|2x4"]
+    got = p["flops_per_device"]
+    one = port[f"{arch}|{kind}|1x1"]["flops_per_device"]
+    r1 = ref["cells"][f"{arch}|{kind}|1x1"]["flops"]
+    print(f"{arch} {kind} 2x4: port flops/device {got:.0f}, reference "
+          f"{r['flops']:.0f}; collective bytes port "
+          f"{p['total_collective_bytes']:.0f}, reference {r['coll']:.0f}; "
+          f"counts port {p['collective_counts']}, reference {r['counts']}")
+    assert "error" not in p and p["n_devices"] == 8
+    unread = _whisper_unread_bytes(MeshShape(AXES, (2, 4))) \
+        if arch == "whisper-large-v3" and kind == "decode" else 0
+    assert p["memory_analysis"]["argument_size_in_bytes"] - r["arg"] \
+        == unread
+    if kind == "train":
+        print(f"  split of the reference's (2, 4) dots: {r['split']}")
+        assert got * 8 == one
+        if arch in ("gemma-2b", "gemma3-1b", "qwen1.5-4b", "qwen3-14b",
+                    "arctic-480b", "qwen3-moe-235b-a22b", "internvl2-26b"):
+            assert one == 0.75 * r1
+    elif arch == "rwkv6-3b":
+        print(f"  reference (2, 4) x 8 / 1 x 1: {r['flops'] * 8 / r1:.4f}")
+        assert r["flops"] * 8 > r1
+        assert got * 8 == one
+    else:
+        want = r["flops"]
+        if arch == "zamba2-7b":
+            want -= (r1 - one) / 8
+        assert abs(got - want) <= FLOPS_REL * want
+    assert p["total_collective_bytes"] > 0 and r["coll"] > 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", POD_ARCHS)
+def test_smoke_pod_mesh(ref, port, arch, kind):
+    """The three axes of the two-pod mesh, ``("pod", "data", "model")``,
+    at 2 x 2 x 2: the cell counts on 8 devices, the arguments' bytes equal
+    the reference's, and collectives appear exactly where the
+    reference's have them; the flops are printed beside the
+    reference's."""
+    r, p = ref["cells"][f"{arch}|{kind}|2x2x2"], port[f"{arch}|{kind}|2x2x2"]
+    print(f"{arch} {kind} 2x2x2: port flops/device "
+          f"{p['flops_per_device']:.0f}, reference {r['flops']:.0f}; "
+          f"collective bytes port {p['total_collective_bytes']:.0f}, "
+          f"reference {r['coll']:.0f}")
+    assert "error" not in p and p["n_devices"] == 8
+    assert p["memory_analysis"]["argument_size_in_bytes"] == r["arg"]
+    assert (p["total_collective_bytes"] > 0) == (r["coll"] > 0)
+
+
+def _branch_flops(cfg, b, s, kv_len) -> float:
+    """Dot flops of one application of zamba2's shared attention + MLP
+    block on (b, s) tokens against ``kv_len`` key positions."""
+    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                        cfg.d_ff)
+    proj = 2 * b * s * d * (2 * h * hd + 2 * kv * hd)
+    mlp = 3 * 2 * b * s * d * ff
+    attn = 2 * 2 * b * h * s * kv_len * hd
+    return proj + mlp + attn
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrence_and_branch_gaps(ref, port, arch, kind):
+    """The two departures of ``op_stats``'s docstring, held from the
+    shapes (B = 8, S = 32, L layers).
+
+    rwkv: the reference's recurrence einsums are dots to XLA.  Per layer
+    and chunk of C positions, ``bthd,bshd,btshd->bhts`` contracts dk:
+    2·B·H·C·C·dk; the current-token bonus ``bthd,hd,bthd,bthv->bthv``
+    contracts dk once a position: 2·B·S·H·dk (in decode, one position:
+    2·B·H·dk, and no chunk).  The port writes both as products and sums.
+
+    zamba2: the reference counts its per-layer conditional at the larger
+    branch, the shared attention + MLP block on every layer, where the
+    port counts the layers that take it (i % attn_every == attn_every -
+    1); and Mamba2's ``bthd,bshd,btshd->bhts`` contracts the state
+    (2·B·H·C·C·st a layer in prefill, C = min(64, S)).
+
+    Train: the reference counts each of those forward gaps G four times
+    (``test_smoke_1x1``), and its transpose of a one-chunk loop (S = 32 is
+    one chunk for both) holds one more product of B·H·C·C·dk a layer
+    (dk: the state, st, for Mamba2; at three chunks its transpose is
+    exactly twice its forward); the port's train flops fall short of
+    three quarters of the reference's by 3·G plus three quarters of
+    that."""
+    cfg = get_smoke_config(arch)
+    b, s, n_layers = 8, 32, cfg.n_layers
+    r, p = ref["cells"][f"{arch}|{kind}|1x1"], port[f"{arch}|{kind}|1x1"]
+    fwd = "prefill" if kind == "train" else kind
+    if cfg.rwkv:
+        h, dk = cfg.n_heads, cfg.d_model // cfg.n_heads
+        c = min(32, s)
+        if fwd == "prefill":
+            want = n_layers * (-(-s // c) * 2 * b * h * c * c * dk
+                               + 2 * b * s * h * dk)
+        else:
+            want = n_layers * 2 * b * h * dk
+    else:
+        h, dk = cfg.ssm_heads, cfg.ssm_state
+        c = min(64, s)
+        apps = sum(1 for i in range(n_layers)
+                   if i % cfg.attn_every == cfg.attn_every - 1)
+        if fwd == "prefill":
+            want = ((n_layers - apps) * _branch_flops(cfg, b, s, s)
+                    + n_layers * -(-s // c) * 2 * b * h * c * c * dk)
+        else:
+            want = (n_layers - apps) * _branch_flops(cfg, b, 1, s)
+    if kind == "train":
+        gap = 0.75 * r["flops"] - p["flops_per_device"]
+        want = 3 * want + 0.75 * n_layers * b * h * c * c * dk
+    else:
+        gap = r["flops"] - p["flops_per_device"]
+    print(f"{arch} {kind}: reference {r['flops']:.0f}, port "
+          f"{p['flops_per_device']:.0f}, gap {gap:.0f}, from the shapes "
+          f"{want:.0f}")
+    assert gap == want > 0
+    assert p["memory_analysis"]["argument_size_in_bytes"] == r["arg"]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_trip_weighting_counts_every_step(counted, arch, mesh):
+    """On fake tensors the dry-run runs one of a train step's microbatches
+    and counts it for all of them (``op_stats.trips``), and a middle chunk
+    of the recurrence for the n - 2 between the first and the last
+    (``op_stats.scan``, ``test_scan_counts_every_chunk``), as
+    ``hlo_stats`` weights a while body.  The recurrent smoke configs'
+    train step at 2 microbatches: every field of the record but the trace
+    time equals the count of every microbatch (flops, HBM bytes,
+    collectives, arguments, outputs and the peak of live storage)."""
+    got = dict(counted[f"{arch}|train|{mesh}"])
+    want = dict(counted[f"{arch}|train|{mesh}|every step"])
+    print(f"{arch} train {mesh}: traced in {got.pop('trace_s')} s "
+          f"weighted, {want.pop('trace_s')} s every step")
+    assert got == want
+    assert got["flops_per_device"] > 0 and got["microbatches"] == 2
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("bonus", [False, True])
+def test_scan_counts_every_chunk(bonus, grad):
+    """``chunked_decay_recurrence`` over 6 chunks on fake tensors, rwkv's
+    (``u``) and Mamba2's, forward and with its backward: the count that
+    runs the first, a middle and the last chunk and weights the middle
+    equals the count of every chunk, flops, HBM bytes and the peak of
+    live storage, to the byte."""
+    from repro_torch.models.recurrent import chunked_decay_recurrence
+
+    fake_mode = FakeTensorMode()
+    with fake_mode:
+        r, k, v, lw = (torch.empty(2, 6 * 8, 3, 4, requires_grad=grad)
+                       for _ in range(4))
+        u = torch.empty(3, 4, requires_grad=grad) if bonus else None
+    counts = []
+    for weighting in (True, False):
+        with OpStats(fake_mode, trip_weighting=weighting) as stats:
+            y, state = chunked_decay_recurrence(r, k, v, lw, u=u, chunk=8)
+            assert y.shape == (2, 48, 3, 4) and state.shape == (2, 3, 4, 4)
+            if grad:
+                wrt = [r, k, v, lw] + ([u] if bonus else [])
+                torch.autograd.grad((y.sum(), state.sum()), wrt)
+        counts.append((stats.flops, stats.hbm_bytes, stats.peak_bytes))
+    assert counts[0] == counts[1] and counts[0][0] > 0
+
+
+def test_roofline_equals_the_reference(port):
+    hw = roofline.Hardware(J_roof.PEAK_FLOPS, J_roof.HBM_BW, J_roof.ICI_BW)
+    recs = [dict(r) for r in port.values()]
+    recs += [{"arch": "gemma-2b", "shape": "train_4k", "mesh": "pod16x16",
+              "error": "RuntimeError: boom", "traceback": "..."},
+             {"arch": "qwen1.5-4b", "shape": "long_500k",
+              "mesh": "pod16x16", "skipped": "no"},
+             {"arch": "not-an-arch", "kind": "decode"}]
+    rows_p, rows_j = [], []
+    for rec in recs:
+        e_p, e_j = roofline._enrich(dict(rec)), J_roof._enrich(dict(rec))
+        assert e_p == e_j
+        if "flops_per_device" not in rec and "error" not in rec \
+                and "skipped" not in rec:
+            continue
+        row_p, row_j = roofline.roofline_row(e_p, hw), \
+            J_roof.roofline_row(e_j)
+        assert row_p == row_j
+        if row_p is not None:
+            assert roofline.model_flops(e_p) == J_roof.model_flops(e_j)
+            assert roofline.analytic_memory_bytes(e_p) == \
+                J_roof.analytic_memory_bytes(e_j)
+            rows_p.append(row_p)
+            rows_j.append(row_j)
+    assert rows_p and len(rows_p) == len(rows_j)
+    for mesh in ("1x1", "2x4"):
+        assert roofline.format_table(rows_p, mesh) == \
+            J_roof.format_table(rows_j, mesh)
