@@ -24,7 +24,7 @@ both meshes counts, each within 10 minutes on a CPU.
 ranks) and ``pod2x16x16`` (512; axes ``pod``, ``data``, ``model``): 80
 records, 14 skipped with the reference's reason (long_500k on the seven
 full-attention archs) and 66 counted.  One process runs the cells one
-after another, about 1.3 CPU-hours in all (the slowest cell about 4
+after another, in about 75 minutes (the slowest cell about 4
 minutes); separate ``--arch``/``--shape`` invocations can run side by
 side, as the sweep is resumable.
 
