@@ -192,7 +192,26 @@ lines:
     bound no longer than the measured step.  Printed: seconds per cell,
     DR1's per-device collective bytes and counts and roofline terms,
     DR2's roofline fraction and the dry-run's peak estimate beside
-    ``max_memory_allocated``.
+    ``max_memory_allocated``;
+15. phase EX — the port's entry points, the six examples of
+    ``repro_torch.examples`` (counterparts of ``examples/*.py``), each
+    ``main`` run on the card at the reference's sizes, steps and seeds'
+    roles, its lines printed under its name.  Gates: quickstart's Design A
+    relative error below Design E's, both finite; hetero_profile's head
+    digital (``pack.head is None``) and one energy row per site of its
+    pack; analog_serve's digital loss, three designs' analog losses and
+    the agreement finite; serve_loop's 10 completions, ``tokens_out`` the
+    sum of their lengths; design_space's digital accuracy and five
+    designs' accuracies, energies and areas finite; train_lm's ~100M LM
+    (8 x 768, vocab 32000, fp32) 300 steps of 16 x 128 tokens, the last
+    loss below the first, checkpoints 200 and 300 kept under
+    ``build/ex/train_lm``, and a second invocation on that directory
+    printing ``resumed from step 300`` and taking no step.  The examples
+    keep the reference's ``fused="off"`` and ``attn_backend="stream"``:
+    they reach none of the kernels, and ``kernels.fused.LAUNCHES`` is
+    printed after each, so that a change of route shows.  Printed:
+    seconds per example, train_lm's median step, tokens/s and peak memory
+    (beside what earlier phases still held on the card when it started).
 
 Each path sets every launch count to 0 just before it and reads them just
 after.  The line before the last lists every ported kernel as JSON (the
@@ -3322,6 +3341,122 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
     return {"step_s": step_s, "bound_s": bound_s, "recs": recs}
 
 
+# ---------------------------------------------------------------------------
+# phase EX: the examples, the port's entry points
+# ---------------------------------------------------------------------------
+
+EX_STEPS = 300        # train_lm's steps (its default)
+
+
+def ex_run(torch, kern_fused, name: str, argv: list):
+    """Run ``repro_torch.examples.<name>.main(argv)`` on the card with
+    every launch count at 0, its printed lines echoed under its name;
+    returns (what main returned, its text, seconds, launches)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    kern_fused.reset_launch_counts()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv + ["--device", DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(kern_fused.LAUNCHES)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"EX {name} | {line}")
+    print(f"EX {name}: {secs:.1f} s, kernels.fused.LAUNCHES {launches}",
+          flush=True)
+    return out, text, secs, launches
+
+
+def finite(*xs) -> bool:
+    return all(math.isfinite(float(x)) for x in xs)
+
+
+def phase_ex(torch, kern_fused) -> dict:
+    """Phase EX: the six examples (``repro_torch.examples``), each
+    ``main`` on the card; gates in the module docstring, item 15, each
+    raising.  Returns {example: launches} and train_lm's numbers."""
+    import shutil
+
+    t_ex = time.perf_counter()
+    # the examples' own scratch (trained MLP, sweep cache) and train_lm's
+    # checkpoints start empty: everything is computed on this card
+    for d in (ROOT / "build" / "examples", ROOT / "build" / "ex"):
+        shutil.rmtree(d, ignore_errors=True)
+    ckpt = str(ROOT / "build" / "ex" / "train_lm")
+    launches = {}
+
+    errs, _, _, launches["quickstart"] = ex_run(
+        torch, kern_fused, "quickstart", [])
+    if not (finite(*(e for _, e in errs)) and errs[0][1] < errs[1][1]):
+        raise AssertionError(f"phase EX: quickstart {errs}")
+
+    out, _, _, launches["hetero_profile"] = ex_run(
+        torch, kern_fused, "hetero_profile", [])
+    if (out["pack"].head is not None
+            or len(out["energy"]) != len(out["pack"].layer_weights)
+            or not finite(*out["losses"])):
+        raise AssertionError("phase EX: hetero_profile")
+    del out
+
+    out, _, _, launches["analog_serve"] = ex_run(
+        torch, kern_fused, "analog_serve", [])
+    if (len(out["losses"]) != 3
+            or not finite(out["digital"], out["agreement"],
+                          *out["losses"].values())):
+        raise AssertionError(f"phase EX: analog_serve {out}")
+
+    out, _, _, launches["serve_loop"] = ex_run(
+        torch, kern_fused, "serve_loop", [])
+    done = out["completions"]
+    if (len(done) != 10 or sorted(c.uid for c in done) != list(range(10))
+            or out["stats"]["tokens_out"] != sum(len(c.tokens)
+                                                 for c in done)):
+        raise AssertionError(f"phase EX: serve_loop {out['stats']}")
+
+    out, _, _, launches["design_space"] = ex_run(
+        torch, kern_fused, "design_space", [])
+    if len(out["rows"]) != 5 or not finite(
+            out["digital"], *(v for r in out["rows"] for v in r[1:])):
+        raise AssertionError(f"phase EX: design_space {out}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold on the card, inside the peak below
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    out, _, tl_s, launches["train_lm"] = ex_run(
+        torch, kern_fused, "train_lm", ["--steps", str(EX_STEPS),
+                                        "--ckpt-dir", ckpt])
+    losses = out["losses"]
+    if (len(losses) != EX_STEPS or out["start"] != 0
+            or not finite(*losses) or not losses[-1] < losses[0]
+            or out["kept"] != [200, 300]):
+        raise AssertionError(f"phase EX: train_lm {len(losses)} steps, "
+                             f"first {losses[:1]}, last {losses[-1:]}, "
+                             f"kept {out['kept']}")
+    step_s = sorted(out["step_s"])[len(out["step_s"]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    again, text, _, _ = ex_run(torch, kern_fused, "train_lm",
+                               ["--steps", str(EX_STEPS), "--ckpt-dir",
+                                ckpt])
+    if ("resumed from step 300" not in text.splitlines()
+            or again["losses"] or again["start"] != EX_STEPS):
+        raise AssertionError("phase EX: train_lm did not resume at 300")
+    print(f"phase EX: train_lm {EX_STEPS} steps in {tl_s:.1f} s, median "
+          f"step {step_s * 1e3:.2f} ms, {16 * 128 / step_s:.0f} tokens/s, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak {peak:.2f} GiB "
+          f"({held:.2f} GiB of it held by earlier phases before train_lm "
+          f"started, {peak - held:.2f} GiB train_lm's own); "
+          f"phase EX in {time.perf_counter() - t_ex:.1f} s", flush=True)
+    return {"launches": launches, "step_s": step_s, "peak": peak,
+            "held": held, "seconds": time.perf_counter() - t_ex}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -3458,6 +3593,14 @@ def main() -> int:
           flush=True)
     print(f"phase DR: TR's reduced step {dr['step_s']:.4f} s against its "
           f"H100 roofline bound {dr['bound_s']:.4f} s on {card}", flush=True)
+    torch.cuda.empty_cache()
+    ex = phase_ex(torch, kern_fused)
+    ex_launches = {name: sum(n[name] for n in ex["launches"].values())
+                   for name in kern_fused.LAUNCHES}
+    print(f"phase EX: train_lm median step {ex['step_s'] * 1e3:.2f} ms, "
+          f"peak {ex['peak']:.2f} GiB ({ex['peak'] - ex['held']:.2f} GiB "
+          f"above what earlier phases held) on {card}; launches over the six "
+          f"examples {ex_launches}", flush=True)
 
     kernels = [
         {"name": "fused_mvm", "route": "cuda",
@@ -3514,6 +3657,8 @@ def main() -> int:
         "max_abs_err": max(bs["max_abs_err"], bs_grid), "ms": bs["ms"],
         "plain_ms": bs["plain_ms"], "bound_ms": bs["bound_ms"],
         "bound_by": bs["bound_by"], "library_ms": bs["library_ms"]})
+    for k in kernels:
+        k["launches"] += ex_launches[k["name"]]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,8 @@ import torch
 
 SONOS_SAT = 0.05 / 1.6
 SONOS_KNEE = SONOS_SAT / 0.06
+#: the SONOS cell's on/off ratio (the reference's ``SONOS_ON_OFF``)
+SONOS_ON_OFF = 1.0e4
 
 
 def fold_seed(seed: int, data) -> int:

@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.layers import ACTIVATIONS, AnalogCtx, dense
-from repro_torch.sharding.perf import (FLAGS, constraint, grad_layout,
-                                      product_rows, replicate_dims)
+from repro_torch.sharding.perf import (FLAGS, constraint, contract_like,
+                                      grad_layout, product_rows,
+                                      replicate_dims)
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, n_layers: int,
@@ -126,6 +127,8 @@ def _experts(p: dict, xe: torch.Tensor, act: str) -> torch.Tensor:
     dt = xe.dtype
     g = fn(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(dt)))
     h = g * torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(dt))
+    # on a mesh, f split as w_down's is, so each rank multiplies its slice
+    h = contract_like(h, p["w_down"], 2, 1)
     return torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
 
 

@@ -36,6 +36,7 @@ import contextlib
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
@@ -312,6 +313,27 @@ def contract_model(x, w):
     return x, w
 
 
+def contract_like(x, w, x_dim: int, w_dim: int):
+    """``x`` laid out for a product that contracts its dim ``x_dim`` with
+    ``w``'s dim ``w_dim``: on each mesh dim that shards ``w``'s, ``x``'s
+    is sharded too (a partial sum reduced into the shard, a replicated
+    dim sliced, another shard exchanged), so each rank multiplies its own
+    slice, a partial sum, as GSPMD splits a product over its sharded
+    contraction; on the other mesh dims ``x`` stays as it is.  The values
+    do not change; plain tensors come back unchanged.  DTensor would
+    otherwise plan by communication alone: on the two pods, arctic's
+    experts kept their hidden activations a partial sum over ``data``,
+    gathered ``w_down`` whole and ran the whole down product on every
+    ``data`` rank."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    want = tuple(Shard(x_dim) if q.is_shard(w_dim) else p
+                 for p, q in zip(x.placements, w.placements))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 class _GradLayout(torch.autograd.Function):
     """The identity, whose backward lays the gradient out as the forward
     value was: a gradient arriving in another layout would otherwise flow
@@ -429,11 +451,14 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
     all-reduce max and the sums by all-reduce sums, as the online softmax
     folds its chunks.  A mesh dim that shards none of these splits the
     heads the same way where H divides it, else the queries where Sq
-    does (``q_offset`` shifted to the rank's first query; K and V whole):
-    otherwise every rank of that dim would attend every head and query,
-    the same work replicated (GSPMD splits it).  Every other dim is whole
-    on every rank.  DTensor would otherwise
-    propagate each of the online softmax's ops, and a product over a
+    does (``q_offset`` shifted to the rank's first query; K and V whole),
+    else the heads padded to a multiple of the mesh dim, as GSPMD splits
+    them (each rank its ``torch.chunk`` share of the q heads with their
+    KV heads, zero heads up to ceil(H / n), cut off after and the heads
+    gathered whole): otherwise every rank of that dim would attend
+    every head and query, the same work replicated.  Every other dim is
+    whole on every rank.  DTensor would otherwise propagate each of the
+    online softmax's ops, and a product over a
     batch and a head dim both sharded plans its redistributions by a
     graph search, seconds per new shape.  Per-row ``q_offset``/``kv_len``
     (B,) are split like the rows; the arithmetic per (row, head) is the
@@ -448,18 +473,21 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
     # what is left to split on each rank after the mesh dims before
     rows, heads, kv_heads, sq = q.shape[0], q.shape[2], k.shape[2], q.shape[1]
     pl, kv_pl, seq_dims, q_dims, pick = [], [], [], [], None
+    padded = None
     for i, p in enumerate(q_pl):
         n = mesh.size(i)
+        even = padded is None     # no uneven head split before this dim
         if (p.is_shard(0) or k_pl[i].is_shard(0)) and rows % n == 0:
             pl.append(Shard(0))
             kv_pl.append(Shard(0))
             rows //= n
-        elif p.is_shard(2) and heads % n == 0 and kv_heads % n == 0:
+        elif (even and p.is_shard(2) and heads % n == 0
+              and kv_heads % n == 0):
             pl.append(Shard(2))
             kv_pl.append(Shard(2))
             heads, kv_heads = heads // n, kv_heads // n
-        elif (p.is_shard(2) and heads % n == 0 and n % kv_heads == 0
-              and pick is None):
+        elif (even and p.is_shard(2) and heads % n == 0
+              and n % kv_heads == 0 and pick is None):
             pl.append(Shard(2))
             kv_pl.append(Replicate())
             pick = (i, n // kv_heads)
@@ -471,11 +499,12 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
         elif n == 1:
             pl.append(Replicate())
             kv_pl.append(Replicate())
-        elif heads % n == 0 and kv_heads % n == 0:
+        elif even and heads % n == 0 and kv_heads % n == 0:
             pl.append(Shard(2))
             kv_pl.append(Shard(2))
             heads, kv_heads = heads // n, kv_heads // n
-        elif heads % n == 0 and n % kv_heads == 0 and pick is None:
+        elif (even and heads % n == 0 and n % kv_heads == 0
+              and pick is None):
             pl.append(Shard(2))
             kv_pl.append(Replicate())
             pick = (i, n // kv_heads)
@@ -485,6 +514,13 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
             kv_pl.append(Replicate())
             q_dims.append(i)
             sq //= n
+        elif even:
+            # GSPMD's split of heads the mesh dim does not divide: each
+            # rank its share of the heads padded to a multiple of n
+            pl.append(Shard(2))
+            kv_pl.append(Replicate())
+            padded = i
+            heads = -(-heads // n)
         else:
             pl.append(Replicate())
             kv_pl.append(Replicate())
@@ -500,17 +536,48 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
             return x
         return block(x, row_pl if x.ndim else whole)
 
-    # each rank's K/V gradient covers its own KV head or its own queries:
-    # a partial sum
-    part = set(q_dims) | ({pick[0]} if pick else set())
+    # each rank's K/V gradient covers its own KV head, its own queries or
+    # its own q heads: a partial sum
+    part = set(q_dims) | ({pick[0]} if pick else set()) \
+        | ({padded} if padded is not None else set())
     grad_pl = tuple(Partial() if d in part else p
                     for d, p in enumerate(kv_pl))
     kb, vb = block(k, kv_pl, grad_pl), block(v, kv_pl, grad_pl)
+    # the global index of the rank's first KV head
+    kv_base = shard_offset(k.shape[2], mesh, kv_pl, 2)
     if pick is not None:
         i, per = pick
         j = mesh.get_coordinate()[i] // per
         kb, vb = kb[:, :, j:j + 1], vb[:, :, j:j + 1]
-    args = (block(q, pl), kb, vb)
+        kv_base += j
+    qb = block(q, pl)
+    if padded is not None:
+        # the rank's uneven share of the q heads and their KV heads (GQA's
+        # head -> KV head map), zero heads up to ``heads``
+        real = qb.shape[2]
+        group = q.shape[2] // k.shape[2]
+        first = shard_offset(q.shape[2], mesh, pl, 2)
+        # the KV heads of the rank's real q heads, within its KV block; a
+        # rank of padding only takes the first head of its own block
+        kv_first = first // group - kv_base if real else 0
+        kv_last = (first + real - 1) // group - kv_base if real \
+            else kv_first
+        if kv_first == kv_last:       # one KV head serves them all
+            kb, vb = kb.narrow(2, kv_first, 1), vb.narrow(2, kv_first, 1)
+        elif group == 1:
+            # MHA: the same heads of K and V, a view (an index_select
+            # would copy the rank's whole KV block: whisper's decode and
+            # encoder cells would count those bytes)
+            kb, vb = (_pad_heads(t.narrow(2, kv_first, real), 2, heads)
+                      for t in (kb, vb))
+        else:                         # each q head its own KV head
+            idx = torch.div(torch.arange(first, first + real,
+                                         device=qb.device), group,
+                            rounding_mode="floor") - kv_base
+            kb, vb = (_pad_heads(t.index_select(2, idx), 2, heads)
+                      for t in (kb, vb))
+        qb = _pad_heads(qb, 2, heads)
+    args = (qb, kb, vb)
     q_offset = rows(q_offset)
     if q_dims:
         q_offset = q_offset + shard_offset(q.shape[1], mesh, pl, 1)
@@ -530,8 +597,10 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
             acc = all_reduce(acc * w[..., None], "sum", group)
             m = top
         out = finish_attention(l, acc, q.dtype)
-    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
-                              shape=q.shape, stride=_contiguous(q.shape))
+    if padded is not None:
+        out = out.narrow(2, 0, real)
+    return _from_block(out.contiguous(), mesh, pl, q.shape,
+                       whole=() if padded is None else (padded,))
 
 
 def local_recurrence(fn, r, k, v, log_w, s0, *, u=None, **kw):
@@ -546,9 +615,13 @@ def local_recurrence(fn, r, k, v, log_w, s0, *, u=None, **kw):
     of each mesh dim that shards one's rows and divides B, and the head
     sharding of each other mesh dim that shards one's heads, or shards
     nothing, and divides H (``u`` (H, dk) split the same way: a mesh dim
-    left whole would repeat every rank's work); every other dim is
-    gathered whole, as :func:`split_heads` gathers heads the mesh cannot
-    divide.
+    left whole would repeat every rank's work).  A mesh dim that shards
+    nothing and divides neither splits the heads as GSPMD does: each
+    rank's shard of the uneven split (``torch.chunk``'s, which is GSPMD's
+    split of the heads padded to a multiple of the mesh dim) is padded
+    with zero heads to ceil(H / n), run, and cut back, and the results'
+    heads are gathered whole again.  Every other dim is gathered whole,
+    as :func:`split_heads` gathers heads the mesh cannot divide.
     DTensor would otherwise propagate every op of every chunk, and the
     contractions over a batch and a head dim both sharded meet a strided
     shard, whose propagation reads shard offsets from a tensor (which a
@@ -577,13 +650,16 @@ def local_recurrence(fn, r, k, v, log_w, s0, *, u=None, **kw):
         elif heads_left % n == 0 and (heads_at or not dims and n > 1):
             pl.append("heads")
             heads_left //= n
+        elif not dims and n > 1:
+            pl.append("padded")
+            heads_left = -(-heads_left // n)
         else:
             pl.append(None)
 
     def place(dim_rows, dim_heads):
         return tuple(Shard(dim_rows) if p == "rows" else
-                     Shard(dim_heads) if p == "heads" else Replicate()
-                     for p in pl)
+                     Shard(dim_heads) if p in ("heads", "padded") else
+                     Replicate() for p in pl)
 
     def block(t, placements, grad_placements=None):
         return _as_dtensor(t, mesh).redistribute(mesh, placements).to_local(
@@ -595,16 +671,50 @@ def local_recurrence(fn, r, k, v, log_w, s0, *, u=None, **kw):
     if u is not None:
         # each rank's gradient covers its own rows: a partial sum
         u_grad = tuple(Partial() if p == "rows" else
-                       Shard(0) if p == "heads" else Replicate() for p in pl)
-        u = block(u, tuple(Shard(0) if p == "heads" else Replicate()
-                           for p in pl), u_grad)
+                       Shard(0) if p in ("heads", "padded") else Replicate()
+                       for p in pl)
+        u = block(u, tuple(Shard(0) if p in ("heads", "padded") else
+                           Replicate() for p in pl), u_grad)
+    # the uneven head splits: each rank's share (from 0 to heads_left of
+    # them) padded with zero heads up to heads_left, cut off after the
+    # call, and gathered whole again (the callers merge heads with hd
+    # next, which cannot keep a shard that splits the heads unevenly)
+    whole = {i for i, p in enumerate(pl) if p == "padded"}
+    if whole:
+        real = args[0].shape[hdim]
+        args = [_pad_heads(t, d, heads_left)
+                for t, d in zip(args, (hdim,) * 4 + (1,))]
+        u = _pad_heads(u, 0, heads_left)
     y, state = fn(*args, u=u, **kw)
+    if whole:
+        y = y.narrow(hdim, 0, real)
+        state = state.narrow(1, 0, real).contiguous()
     y_shape = tuple(v.shape)
     s_shape = (bsz, heads, r.shape[-1], v.shape[-1])
-    return (DTensor.from_local(y.contiguous(), mesh, x_pl, run_check=False,
-                               shape=y_shape, stride=_contiguous(y_shape)),
-            DTensor.from_local(state, mesh, s_pl, run_check=False,
-                               shape=s_shape, stride=_contiguous(s_shape)))
+    return (_from_block(y.contiguous(), mesh, x_pl, y_shape, whole),
+            _from_block(state, mesh, s_pl, s_shape, whole))
+
+
+def _pad_heads(t, dim: int, width: int):
+    """``t`` with zero heads appended along ``dim`` up to ``width`` (None
+    stays None): a rank's share of heads split unevenly over a mesh dim,
+    padded as GSPMD pads them to a multiple of the dim."""
+    if t is None:
+        return None
+    return F.pad(t, [0, 0] * (t.ndim - 1 - dim) + [0, width - t.shape[dim]])
+
+
+def _from_block(t, mesh, placements, shape, whole=()):
+    """The DTensor of ``shape`` whose block on this rank is ``t``, laid
+    out as ``placements``; the mesh dims in ``whole`` (the uneven head
+    splits of :func:`_pad_heads`) then gathered whole again."""
+    out = DTensor.from_local(t, mesh, placements, run_check=False,
+                             shape=shape, stride=_contiguous(shape))
+    if whole:
+        out = out.redistribute(mesh, tuple(
+            Replicate() if d in whole else p
+            for d, p in enumerate(placements)))
+    return out
 
 
 def _contiguous(shape) -> tuple:

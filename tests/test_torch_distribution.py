@@ -18,7 +18,12 @@ case waits for its own.  Unless stated, a job is a 2 x 2 ``("data",
 * ``build_step`` on gemma-2b, arctic-480b, zamba2-7b, rwkv6-3b and
   whisper-large-v3 for train, prefill and decode, one step against the
   port's unsharded step: loss and grad norm (train) and logits and caches
-  (prefill, decode) within 1e-5 relative, greedy tokens equal.
+  (prefill, decode) within 1e-5 relative, greedy tokens equal; rwkv6-3b
+  also on a (1, 3) mesh (3 ranks), whose ``model`` dim splits its 4
+  heads unevenly (padded to 6), and qwen3-14b's decode attention at 8
+  heads over 2 KV heads on the same mesh; zamba2-7b on a (2, 3) mesh (6
+  ranks) at 3 rows, split evenly by heads over ``data``, then padded
+  over ``model``.
 * Every ``perf.VARIANTS`` entry on qwen3-14b and both MoE smoke configs:
   prefill logits within 1e-5 relative of ``baseline``'s.
 * RoPE's rotate-half on a ``model``-sharded q (heads, and within heads)
@@ -66,6 +71,10 @@ dist.init_process_group(
     world_size=WS, timeout=timedelta(seconds={STORE_TIMEOUT_S}))
 
 
+MESH_DIMS = (2, 2)   # the models' ("data", "model") mesh, unless a job says
+ROWS = 8             # the rows of every batch, unless a job says
+
+
 def report(**kw):
     if RANK == 0:
         print("RESULT " + json.dumps(kw), flush=True)
@@ -93,8 +102,8 @@ from repro_torch.pytree import flatten_with_path
 from repro_torch.sharding import rules
 from repro_torch.train.step import make_train_state, train_step_fn
 
-MESH = make_debug_mesh(2, 2, "cpu")
-B, S = 8, 32
+MESH = make_debug_mesh(*MESH_DIMS, "cpu")
+B, S = ROWS, 32
 
 
 def full(x):
@@ -180,12 +189,18 @@ def decode_case(cfg, n_steps=2):
 """
 
 
-def _arch_body(arch: str) -> str:
-    return MODEL_HELPERS + textwrap.dedent(f"""
-        cfg = get_smoke_config({arch!r})
-        report(train=train_case(cfg), prefill=prefill_case(cfg),
-               decode=decode_case(cfg))
-        """)
+def _arch_body(arch: str, dims=(2, 2), rows=8, microbatches=2,
+               **fields) -> str:
+    """One arch's smoke config (with ``fields`` replaced) on a ``dims``
+    mesh, ``rows`` rows a batch: train (in ``microbatches``), prefill and
+    decode against the unsharded path."""
+    return (f"MESH_DIMS = {dims!r}\nROWS = {rows!r}\n" + MODEL_HELPERS
+            + textwrap.dedent(f"""
+        import dataclasses
+        cfg = dataclasses.replace(get_smoke_config({arch!r}), **{fields!r})
+        report(train=train_case(cfg, {microbatches!r}),
+               prefill=prefill_case(cfg), decode=decode_case(cfg))
+        """))
 
 
 TRAIN_BODY = MODEL_HELPERS + textwrap.dedent("""
@@ -493,6 +508,11 @@ ARCHS = ["gemma-2b", "arctic-480b", "zamba2-7b", "rwkv6-3b",
 def jobs():
     order = [
         _Job("arch-rwkv6-3b", _arch_body("rwkv6-3b"), 4, 400),
+        _Job("uneven-rwkv6-3b", _arch_body("rwkv6-3b", (1, 3)), 3, 400),
+        _Job("uneven-qwen3-14b", _arch_body("qwen3-14b", (1, 3), n_heads=8,
+                                            n_kv_heads=2), 3, 400),
+        _Job("uneven-zamba2-7b", _arch_body("zamba2-7b", (2, 3), rows=3,
+                                            microbatches=1), 6, 400),
         _Job("variants", VARIANTS_BODY, 4, 400),
         _Job("arch-whisper-large-v3", _arch_body("whisper-large-v3"), 4, 400),
         _Job("arch-zamba2-7b", _arch_body("zamba2-7b"), 4, 400),
@@ -524,6 +544,33 @@ def test_sharded_train_step_matches_single_device(jobs):
 def test_build_step_all_kinds_match_unsharded(jobs, arch):
     r = jobs[f"arch-{arch}"]
     print(arch, json.dumps(r))
+    t = r["train"]
+    assert t["loss_rel"] <= REL and t["gnorm_rel"] <= REL, t
+    assert t["param_worst"] < PARAM_ATOL and t["lr_equal"], t
+    for kind in ("prefill", "decode"):
+        k = r[kind]
+        assert k["logits_rel"] <= REL and k["cache_rel"] <= REL, (kind, k)
+        assert k["tokens_equal"], (kind, k)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-14b", "zamba2-7b"])
+def test_uneven_heads_match_unsharded(jobs, arch):
+    """A (1, 3) mesh, whose ``model`` dim divides neither the 4 heads nor
+    shards the rows: rwkv's ``local_recurrence`` runs each rank's 2 heads
+    of the padded 6 (``torch.chunk``'s uneven split, the last rank's
+    heads all padding) and gathers them whole; qwen3-14b's decode
+    attention, its smoke config at 8 q heads over 2 KV heads and a cache
+    of 32 positions the mesh cannot split, does the same in
+    ``local_attention`` (3 heads a rank: the middle rank's span both KV
+    heads, each q head given its own, the others' share one).  zamba2's
+    4 MHA heads and 4 Mamba2 heads on a (2, 3) mesh at 3 rows (trained
+    in one microbatch), which ``data`` does not divide: ``data`` splits
+    the heads evenly (2 a rank, each ``data`` rank its own KV block),
+    then ``model`` pads them (1 a rank, its last rank's all padding, in
+    the attention and in the recurrence).  Train, prefill and decode
+    against the unsharded step as ``build_step``'s other cases."""
+    r = jobs[f"uneven-{arch}"]
+    print(json.dumps(r))
     t = r["train"]
     assert t["loss_rel"] <= REL and t["gnorm_rel"] <= REL, t
     assert t["param_worst"] < PARAM_ATOL and t["lr_equal"], t

@@ -32,6 +32,13 @@ that they run beside its other tests.
   mesh qwen1.5-4b's and arctic-480b's arguments equal and collectives
   where the reference has them.
 * zamba2 and rwkv smoke: the flops gap to the reference, from the shapes.
+* Work a mesh dim cannot divide is split, not repeated: rwkv's smoke
+  prefill and decode on a (1, 8) mesh, whose ``model`` dim divides
+  neither its 4 heads nor shards its rows, count the 1 x 1 flops split
+  over 8 with the recurrence's split over the heads padded to 8 (a
+  formula from the shapes), no more than the reference's on that mesh;
+  arctic at published width (1 layer, a 512-token vocabulary, prefill_32k's
+  2^20 tokens) counts on the two pods exactly half of one pod's flops.
 * The trip-weighted count (``op_stats.trips``, ``op_stats.scan``) equal
   to every step counted: rwkv's and zamba2's smoke train step on both
   meshes, and the chunked recurrence over six chunks.
@@ -80,6 +87,14 @@ POD = {"2x2x2": (2, 2, 2)}
 POD_AXES = ("pod", "data", "model")
 POD_ARCHS = ("qwen1.5-4b", "arctic-480b")
 FLOPS_REL = 0.10            # the (2, 4) mesh's flops against the reference
+#: a ``model`` dim of 8 over rwkv's 4 smoke heads: it divides neither
+#: the heads nor shards the rows, and divides every other product's dims
+UNEVEN = {"1x8": (1, 8)}
+UNEVEN_KINDS = ("prefill", "decode")
+#: arctic-480b at published width, 1 layer and a 512-token vocabulary,
+#: prefilling 2048 x 512 tokens: prefill_32k's 2^20 tokens, so its
+#: experts' capacity, at a fifth of its trace time
+POD_CELL = ({"n_layers": 1, "vocab": 512}, 512, 2048)
 
 REF_BODY = r'''
 import os
@@ -196,9 +211,31 @@ print("PORT " + json.dumps(out))
 '''
 
 
+POD_CELL_BODY = r'''
+import dataclasses, json
+from repro_torch.config import ShapeConfig
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+
+over, seq, batch = POD_CELL
+cfg = dataclasses.replace(get_config("arctic-480b"), **over)
+out = {}
+for multi_pod, name, n in ((False, "pod16x16", 256),
+                           (True, "pod2x16x16", 512)):
+    with dryrun.fake_group(n):
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        out[f"arctic-480b|prefill|{name}|experts"] = dryrun.cell_stats(
+            cfg, ShapeConfig("prefill", seq, batch, "prefill"), mesh)
+print("PORT " + json.dumps(out))
+'''
+
+
 def _ref_jobs():
     """The reference's cells in three subprocesses of about equal work."""
     one = [(a, k, "1x1", (1, 1), AXES) for a in ARCH_IDS for k in KINDS]
+    one += [("rwkv6-3b", k, n, dims, AXES) for k in UNEVEN_KINDS
+            for n, dims in UNEVEN.items()]
     two = [(a, k, "2x4", (2, 4), AXES) for a in ARCH_IDS for k in KINDS]
     pod = [(a, k, n, dims, POD_AXES) for a in POD_ARCHS for k in KINDS
            for n, dims in POD.items()]
@@ -227,7 +264,10 @@ def _port_groups():
         [("2x4", (2, 4), AXES, smoke("2x4", ARCH_IDS[half + 1:]))],
         [("2x2x2", POD["2x2x2"], POD_AXES, smoke("2x2x2", POD_ARCHS))],
         [("1x1", (1, 1), AXES, every_step("1x1")),
-         ("2x4", (2, 4), AXES, every_step("2x4"))],
+         ("2x4", (2, 4), AXES, every_step("2x4"))]
+        + [(n, dims, AXES, [(f"rwkv6-3b|{k}|{n}", "rwkv6-3b", k, 32, 2,
+                             True) for k in UNEVEN_KINDS])
+           for n, dims in UNEVEN.items()],
     ]
 
 
@@ -258,6 +298,7 @@ def procs():
            for jobs in _ref_jobs()]
     port = [_start(f"GROUPS = {groups!r}\n" + PORT_BODY)
             for groups in _port_groups()]
+    port.append(_start(f"POD_CELL = {POD_CELL!r}\n" + POD_CELL_BODY))
     yield {"ref": ref, "port": port}
     for proc in ref + port:
         if proc.poll() is None:
@@ -736,6 +777,55 @@ def test_recurrence_and_branch_gaps(ref, port, arch, kind):
           f"{want:.0f}")
     assert gap == want > 0
     assert p["memory_analysis"]["argument_size_in_bytes"] == r["arg"]
+
+
+@pytest.mark.parametrize("kind", UNEVEN_KINDS)
+def test_uneven_heads_split_as_padded(ref, port, kind):
+    """rwkv's smoke prefill and decode on a ``model`` dim of 8 over its 4
+    heads, which the mesh divides neither: each rank runs its share of
+    the heads padded to a multiple of 8, ceil(4 / 8) = 1, as GSPMD does,
+    where every rank ran all 4.  Every other product divides the 8 ranks
+    (``contract_model``), so the per-device flops are the 1 x 1 count
+    split over 8, but for the recurrence's dots, split over the padded
+    heads: per layer and chunk of C positions ``a @ v`` 2·B·H·C·C·dv, the
+    carry-in and the state's update 2·B·H·C·dk·dv each (in decode one
+    position: ``r @ state``, 2·B·H·dk·dv).  No more than the reference's
+    count on the same mesh, within ``FLOPS_REL``."""
+    cfg = get_smoke_config("rwkv6-3b")
+    b, s, n = 8, 32, UNEVEN["1x8"][1]
+    h = cfg.n_heads
+    dk = dv = cfg.d_model // h
+    c = min(32, s)
+    if kind == "prefill":
+        rec = -(-s // c) * (2 * b * h * c * c * dv + 2 * 2 * b * h * c * dk * dv)
+    else:
+        rec = 2 * b * h * dk * dv
+    rec *= cfg.n_layers
+    one = port[f"rwkv6-3b|{kind}|1x1"]["flops_per_device"]
+    got = port[f"rwkv6-3b|{kind}|1x8"]["flops_per_device"]
+    r = ref["cells"][f"rwkv6-3b|{kind}|1x8"]["flops"]
+    want = (one - rec) / n + rec * -(-h // n) / h
+    print(f"rwkv6-3b {kind} 1x8: port {got:.0f}, from the 1 x 1 count "
+          f"{want:.0f} (recurrence {rec:.0f} of {one:.0f}), reference "
+          f"{r:.0f}")
+    assert got == want
+    assert got <= r * (1 + FLOPS_REL)
+
+
+def test_two_pods_split_the_experts(counted):
+    """arctic's experts on the two pods (``POD_CELL``, prefill_32k's
+    token count): ``w_down``'s contraction is split over ``pod`` and
+    ``data`` as the weight is (``contract_like``), so the cell counts
+    exactly half of its one-pod flops per device; before, every ``data``
+    rank ran the whole down product (prefill_32k: 3.242e14 against
+    2.736e14)."""
+    one = counted["arctic-480b|prefill|pod16x16|experts"]
+    two = counted["arctic-480b|prefill|pod2x16x16|experts"]
+    print(f"arctic-480b {POD_CELL}: pod16x16 {one['flops_per_device']:.6e} "
+          f"flops/device in {one['trace_s']} s, pod2x16x16 "
+          f"{two['flops_per_device']:.6e} in {two['trace_s']} s")
+    assert one["n_devices"] == 256 and two["n_devices"] == 512
+    assert two["flops_per_device"] * 2 == one["flops_per_device"]
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

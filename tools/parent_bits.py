@@ -6,10 +6,12 @@ CPU.
 
 after ``git archive <parent> | tar -x -C build/parent``.  Each checkout
 runs in its own process (``kernel_tree.use_tree``) and writes, for the
-smoke configs, rwkv6-3b's, zamba2-7b's and whisper-large-v3's prefill
-logits over 4 x 16 tokens, three greedy decode steps' logits and the
-forward's logits, and arctic-480b's loss and gradients of one batch and
-the state and loss after a train step of 2 microbatches.  The tool
+smoke configs, rwkv6-3b's, zamba2-7b's, whisper-large-v3's,
+arctic-480b's and qwen3-moe-235b-a22b's prefill logits over 4 x 16
+tokens, three greedy decode steps' logits and the forward's logits, and
+arctic-480b's, qwen3-moe-235b-a22b's and rwkv6-3b's loss and gradients
+of one batch and the state and loss after a train step of 2
+microbatches.  The tool
 prints how many tensors differ in value and in bits (every float
 compared as its integer bit pattern) and exits non-zero if any does.
 """
@@ -38,7 +40,8 @@ def dump(path: str) -> None:
 
     out = {}
     g = torch.Generator().manual_seed(1)
-    for arch in ("rwkv6-3b", "zamba2-7b", "whisper-large-v3"):
+    for arch in ("rwkv6-3b", "zamba2-7b", "whisper-large-v3",
+                 "arctic-480b", "qwen3-moe-235b-a22b"):
         cfg = get_smoke_config(arch)
         api = get_model(cfg)
         params = api.init_params(cfg, 0, device="cpu")
@@ -55,15 +58,18 @@ def dump(path: str) -> None:
             out[f"{arch}/decode{i}"] = logits
             t = logits[:, -1].argmax(-1)[:, None]
         out[f"{arch}/forward"] = api.forward(cfg, params, toks, **kw)[0]
-    cfg = get_smoke_config("arctic-480b")
-    batch = SyntheticLM(cfg, 32, 8, seed=0, device="cpu").batch(0)
-    state = TS.make_train_state(cfg, 0, device="cpu")
-    loss, _, grads = TS.loss_and_grads(cfg, state.params, batch)
-    out["arctic/loss"] = loss
-    out.update({f"arctic/grad/{n}": x for n, x in flatten_with_path(grads)})
-    new, metrics = TS.train_step_fn(cfg, microbatches=2)(state, batch)
-    out["arctic/step_loss"] = metrics["loss"]
-    out.update({f"arctic/state/{n}": x for n, x in flatten_with_path(new)})
+    for arch in ("arctic-480b", "qwen3-moe-235b-a22b", "rwkv6-3b"):
+        cfg = get_smoke_config(arch)
+        batch = SyntheticLM(cfg, 32, 8, seed=0, device="cpu").batch(0)
+        state = TS.make_train_state(cfg, 0, device="cpu")
+        loss, _, grads = TS.loss_and_grads(cfg, state.params, batch)
+        out[f"{arch}/loss"] = loss
+        out.update({f"{arch}/grad/{n}": x
+                    for n, x in flatten_with_path(grads)})
+        new, metrics = TS.train_step_fn(cfg, microbatches=2)(state, batch)
+        out[f"{arch}/step_loss"] = metrics["loss"]
+        out.update({f"{arch}/state/{n}": x
+                    for n, x in flatten_with_path(new)})
     with open(path, "wb") as fh:
         pickle.dump({k: v.detach().clone() for k, v in out.items()}, fh)
 
