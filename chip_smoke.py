@@ -189,10 +189,15 @@ lines:
     1 x 1 fake mesh against the same ``build_train_step`` on a one-rank
     NCCL group on the card, both counted by ``OpStats``: flops equal, HBM
     bytes within 1%, the arguments' bytes equal, and the H100 roofline
-    bound no longer than the measured step.  Printed: seconds per cell,
+    bound no longer than the measured step; DR3 qwen3-moe-235b-a22b x
+    prefill_32k at full width, 1 layer, on the 16 x 16 fake pod, counted
+    in its own process (the card visible) on a ``cuda`` mesh, DTensor's
+    NCCL branch, and on the dry-run's ``cpu`` mesh with its all-to-all
+    hook: flops, collective bytes and counts equal kind by kind,
+    all-to-alls on both.  Printed: seconds per cell,
     DR1's per-device collective bytes and counts and roofline terms,
     DR2's roofline fraction and the dry-run's peak estimate beside
-    ``max_memory_allocated``;
+    ``max_memory_allocated``, DR3's two records;
 15. phase EX — the port's entry points, the six examples of
     ``repro_torch.examples`` (counterparts of ``examples/*.py``), each
     ``main`` run on the card at the reference's sizes, steps and seeds'
@@ -3096,6 +3101,9 @@ DR_CELLS = (("qwen1.5-4b", "train_4k", False),
 DR_MESHES = {False: (("data", "model"), (16, 16)),
              True: (("pod", "data", "model"), (2, 16, 16))}
 DR_USEFUL = (0.05, 1.0)           # DR1's open-closed bounds on useful_ratio
+#: DR3's cell (arch, shape, layers) on the 16 x 16 pod: the MoE combine's
+#: Shard->Shard redistributions at published width
+DR3_CELL = ("qwen3-moe-235b-a22b", "prefill_32k", 1)
 DR_HBM_REL = 0.01                 # DR2: card bytes against the dry-run's
 DR_JOB = """
 import dataclasses, json, sys, time
@@ -3119,14 +3127,44 @@ print("RECORD " + json.dumps(rec), flush=True)
 """
 
 
+DR3_JOB = """
+import contextlib, dataclasses, json, sys, time
+from unittest import mock
+sys.path.insert(0, "src")
+from repro_torch.config import SHAPES
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh
+cfg = dataclasses.replace(get_config({arch!r}), n_layers={layers!r})
+out = {{}}
+# the cuda mesh sends DTensor's own NCCL branch, with no hook; the cpu
+# mesh is counted with the dry-run's hook and, for comparison, without it
+for label, device_type, hook in (("cuda", "cuda", False),
+                                 ("cpu", "cpu", True),
+                                 ("cpu, no hook", "cpu", False)):
+    t0 = time.perf_counter()
+    own = (contextlib.nullcontext() if hook else
+           mock.patch.object(D, "card_alltoall", contextlib.nullcontext))
+    with own, D.fake_group(256):
+        mesh = make_production_mesh(device_type=device_type)
+        rec = D.cell_stats(cfg, SHAPES[{shape!r}], mesh)
+    rec["job_s"] = time.perf_counter() - t0
+    out[label] = rec
+print("RECORD " + json.dumps(out), flush=True)
+"""
+
+
 def dr_start(layers: int) -> dict:
     """Start phase DR's CPU halves, each its own ``python3`` process with
     no card visible (the dry-run touches no device; its fake process
     group cannot share a process with SO's NCCL group): DR1's four cells
     at full width on the 16 x 16 fake pod or the 2 x 16 x 16 two pods,
-    and DR2's dry-run of TR's reduced cell on a 1 x 1 fake mesh.  They run
-    beside TR and SO, which are bound by the card.  Returns {label:
-    (Popen, log path)}."""
+    and DR2's dry-run of TR's reduced cell on a 1 x 1 fake mesh; and DR3,
+    the one job that sees the card, ``DR3_CELL`` counted on a fake group
+    over a ``cuda`` mesh and over the dry-run's ``cpu`` mesh, with its
+    all-to-all hook and without (fake tensors allocate nothing on the
+    card).  They run beside TR and SO, which are bound
+    by the card.  Returns {label: (Popen, log path)}."""
     import os
 
     out = ROOT / "build" / "dr"
@@ -3143,6 +3181,13 @@ def dr_start(layers: int) -> dict:
             procs[label] = (subprocess.Popen(
                 [sys.executable, "-c", code], cwd=ROOT, env=env, stdout=fh,
                 stderr=subprocess.STDOUT), log)
+    arch, shape, n = DR3_CELL
+    log = out / "DR3.log"
+    with open(log, "w") as fh:
+        procs["DR3"] = (subprocess.Popen(
+            [sys.executable, "-c",
+             DR3_JOB.format(arch=arch, shape=shape, layers=n)],
+            cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT), log)
     return procs
 
 
@@ -3187,6 +3232,36 @@ def dr_arg_bytes(cfg, shape, mesh) -> int:
     return total
 
 
+def dr3_check(dr3: dict) -> None:
+    """DR3's gate on its job's records ({mesh label: record}): the
+    ``cuda`` mesh's count (DTensor's NCCL branch) equals the ``cpu``
+    mesh's under ``dryrun.card_alltoall`` kind by kind, with all-to-alls
+    on both; every record is printed."""
+    arch, shape_name, n = DR3_CELL
+    keys = ("flops_per_device", "collective_bytes_per_device",
+            "collective_counts")
+    for label, rec in dr3.items():
+        print(f"DR3 {arch} x {shape_name} x pod16x16, {n} layer, "
+              f"{label} mesh: flops/device "
+              f"{rec['flops_per_device']:.6e}, HBM bytes/device "
+              f"{rec['hbm_bytes_per_device']:.6e}; collective bytes/device "
+              f"{rec['collective_bytes_per_device']} (total "
+              f"{rec['total_collective_bytes']:.6e}), counts "
+              f"{rec['collective_counts']}; traced in {rec['trace_s']} s "
+              f"({rec['job_s']:.1f} s with its fake group and mesh)",
+              flush=True)
+    equal = {k: dr3["cuda"][k] == dr3["cpu"][k] for k in keys}
+    excess = (dr3["cpu, no hook"]["total_collective_bytes"]
+              / dr3["cuda"]["total_collective_bytes"])
+    print(f"DR3 cuda mesh == cpu mesh: {equal}; the cpu mesh without the "
+          f"hook counts {excess:.4f}x the cuda mesh's collective bytes",
+          flush=True)
+    if not all(equal.values()) or not all(
+            dr3[m]["collective_counts"]["all-to-all"] > 0
+            for m in ("cuda", "cpu")):
+        raise AssertionError("phase DR: DR3 failed")
+
+
 def path_dr(torch, args, kern_fused, procs) -> dict:
     """Phase DR: the dry-run tooling (``repro_torch.launch.dryrun``,
     ``op_stats``, ``roofline``).  Gates, each raising:
@@ -3205,10 +3280,20 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
          equal, HBM bytes within 1%, ``argument_size_in_bytes`` equal to
          the placed inputs' bytes, and the H100 roofline bound no longer
          than the measured step (a bound above it means the count is
-         wrong).
+         wrong);
+    DR3. ``DR3_CELL`` (qwen3-moe-235b-a22b x prefill_32k, 1 layer, full
+         width, 16 x 16 fake pod) counted on a ``cuda`` mesh, where
+         DTensor takes its own NCCL branch, and on the dry-run's ``cpu``
+         mesh, where ``dryrun.card_alltoall`` stands in for DTensor's
+         all-gather fallback: flops, collective bytes and collective
+         counts equal kind by kind, and all-to-alls counted on both (a
+         cuda mesh that cannot be built fails the phase); the ``cpu``
+         mesh without the hook, DTensor's all-gather fallback, is
+         printed beside them.
     Printed: seconds per cell, DR1's per-device collective bytes and
     counts, DR2's roofline fraction and the dry-run's peak estimate
-    (arguments + temporaries) beside ``max_memory_allocated``."""
+    (arguments + temporaries) beside ``max_memory_allocated``, DR3's two
+    records."""
     import torch.distributed as dist
 
     from repro_torch.config import SHAPES
@@ -3259,6 +3344,8 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
         if (rec["n_devices"] != math.prod(mesh.sizes) or got != want
                 or not lo < row["useful_ratio"] <= hi):
             raise AssertionError(f"phase DR: {label} failed")
+
+    dr3_check(recs["DR3"])
 
     # DR2: TR's reduced cell, dry-run against the card
     dry = recs["DR2 dry-run"]

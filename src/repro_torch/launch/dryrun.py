@@ -10,7 +10,10 @@ returns at once, moving nothing) at 256 or 512 ranks, this process
 standing for rank 0; its mesh is ``device_type="cpu"``; and every tensor
 is a ``FakeTensor`` (a shape and a dtype, no storage).  The step runs
 eagerly on those, op by op, and ``op_stats.OpStats`` counts what rank 0
-dispatches; the reference lowers and compiles instead.  Two loops whose
+dispatches; the reference lowers and compiles instead.  A Shard->Shard
+redistribution counts as the card's mesh sends it, one all-to-all of the
+local shard (:func:`card_alltoall`), not as DTensor's fallback for a
+``cpu`` mesh, an all-gather of n times the bytes.  Two loops whose
 steps have the same shapes run in part and are counted for all of their
 steps, as the reference's while bodies are weighted by their trip counts
 (``op_stats``'s docstring): the recurrence's chunks (``op_stats.scan``)
@@ -99,6 +102,45 @@ def fake_group(world_size: int):
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def card_alltoall():
+    """Inside the block, a Shard->Shard redistribution of fake tensors on
+    a ``cpu`` mesh dispatches ``_dtensor.shard_dim_alltoall``, the op
+    DTensor sends on the card's NCCL mesh, which ``op_stats`` counts as
+    one all-to-all of the local shard's bytes times (n-1)/n.
+
+    Needed because ``torch.distributed.tensor._collective_utils
+    .shard_dim_alltoall`` branches on ``mesh.device_type == "cpu"``
+    ("Gloo does not support alltoall") to an ``all_gather_single`` plus a
+    chunk: on the dry-run's ``cpu`` mesh the count would hold an
+    all-gather of n times the all-to-all's wire bytes.  The function is
+    replaced where it is looked up, in ``placement_types`` (which imports
+    it by name for ``Shard._to_new_shard_dim``) and in
+    ``_collective_utils``, and restored on exit, an exception included.
+    Real tensors and other meshes keep DTensor's own path, so a gloo
+    mesh redistributes as before, inside the block too."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    modules = (_collective_utils, placement_types)
+    saved = [m.shard_dim_alltoall for m in modules]
+    dtensor_own = saved[0]
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu" or not isinstance(input, FakeTensor):
+            return dtensor_own(input, gather_dim, shard_dim, mesh, mesh_dim)
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    try:
+        for m in modules:
+            m.shard_dim_alltoall = alltoall
+        yield
+    finally:
+        for m, fn in zip(modules, saved):
+            m.shard_dim_alltoall = fn
+
+
 def _local_bytes(tree) -> int:
     return sum(x.to_local().numel() * x.element_size() for x in leaves(tree))
 
@@ -113,7 +155,9 @@ def cell_stats(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     step from ``launch.steps.build_step``, its inputs made as fake tensors
     and placed by the rules before the count starts (the reference's
     arguments arrive placed), then the step run once inside
-    ``OpStats``'s window.  Returns the record's measured fields."""
+    ``OpStats``'s window, its Shard->Shard redistributions sent as the
+    card's all-to-all (:func:`card_alltoall`).  Returns the record's
+    measured fields."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     kw = {"microbatches": microbatches} if shape.kind == "train" else {}
@@ -123,10 +167,12 @@ def cell_stats(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     with fake_mode:
         args = tuple(
             rules.distribute_tree(tree_map(
-                lambda t: torch.empty(t.shape, dtype=t.dtype), s), sp, mesh)
+                lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                      device=mesh.device_type), s), sp, mesh)
             for s, sp in zip(structs, specs))
     t0 = time.perf_counter()
-    with OpStats(fake_mode, trip_weighting=trip_weighting) as stats:
+    with card_alltoall(), \
+            OpStats(fake_mode, trip_weighting=trip_weighting) as stats:
         out = fn(*args)
     trace_s = time.perf_counter() - t0
 

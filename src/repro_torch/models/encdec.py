@@ -17,7 +17,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.errors import generator
@@ -29,6 +28,7 @@ from repro_torch.models.layers import dense, norm, remat_call
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.transformer import (_layer, _norm_init, _tokens,
                                             compute_dtype)
+from repro_torch.sharding.perf import pad_dim
 
 
 def _sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -193,7 +193,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens, max_len: int, *,
                      positions=torch.arange(s, device=x.device),
                      cross_kv=cross_kv, cache=None, cache_len=None)
     logits = _logits(cfg, params, x[:, -1:])
-    kv = {n: F.pad(a, (0, 0, 0, 0, 0, max_len - s)) for n, a in kv.items()}
+    kv = {n: pad_dim(a, -3, max_len - s) for n, a in kv.items()}
     return logits, {"k": kv["k"], "v": kv["v"], "ckv": cross_kv,
                     "len": torch.tensor(s, dtype=torch.int32,
                                         device=x.device)}

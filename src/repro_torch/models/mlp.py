@@ -162,9 +162,12 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     tok = torch.arange(t, device=dev).repeat_interleave(k)
 
     # every kept assignment owns its buffer row, so a plain write moves
-    # it; the dropped ones all land on the overflow row, which is cut off
-    xbuf = xt.new_zeros((e * cap + 1, d))
-    xbuf[dest] = xt[tok]
+    # it; the dropped ones all land on the overflow row, which is cut off.
+    # On a mesh the write is out of place on whole operands, the layout
+    # the in-place write took: the card's torch has no DTensor strategy
+    # for an in-place ``index_put_``
+    xbuf = xt.new_zeros((e * cap + 1, d)).index_put(
+        (replicate_dims(dest, 0),), replicate_dims(xt[tok], 0, 1))
     # its gradient arrives laid out like the experts' outputs (on a mesh,
     # experts and capacity both sharded), which the flattened rows' view
     # would turn into a strided shard: it is laid out as the buffer first

@@ -41,7 +41,7 @@ from repro_torch.models.attention import attention_block, init_attention
 from repro_torch.models.layers import AnalogCtx, dense, norm, remat_call
 from repro_torch.models.mlp import init_mlp, init_moe, mlp_block, moe_block
 from repro_torch.sharding.perf import (FLAGS, batch_rows, constrain_bs,
-                                      local_embedding)
+                                      local_embedding, pad_dim)
 
 GLOBAL_WINDOW = 1 << 30
 
@@ -314,7 +314,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens, max_len: int, *,
     length = torch.tensor(s, dtype=torch.int32, device=x.device)
     if cfg.rwkv:
         return logits, {"layers": new_cache, "len": length}
-    kv = {n: F.pad(a, (0, 0, 0, 0, 0, max_len - s))
+    kv = {n: pad_dim(a, -3, max_len - s)
           for n, a in new_cache["attn"].items()}
     return logits, {"layers": {"attn": kv}, "len": length}
 

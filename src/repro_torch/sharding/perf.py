@@ -390,6 +390,23 @@ def replicate_dims(x, *dims: int):
     return x.redistribute(x.device_mesh, want)
 
 
+def pad_dim(x, dim: int, n: int):
+    """``x`` with ``n`` zeros appended along tensor dim ``dim``.  On a mesh
+    each rank pads its own shard, ``dim`` made whole first: the card's
+    torch cannot plan DTensor's ``constant_pad_nd`` on the prefill
+    cache's layout (its redistribution plan indexes past the
+    placements)."""
+    dim %= x.ndim
+    pad = [0, 0] * (x.ndim - 1 - dim) + [0, n]
+    if not isinstance(x, DTensor):
+        return F.pad(x, pad)
+    x = replicate_dims(x, dim)
+    shape = tuple(s + n if i == dim else s for i, s in enumerate(x.shape))
+    return DTensor.from_local(F.pad(x.to_local(), pad), x.device_mesh,
+                              x.placements, run_check=False, shape=shape,
+                              stride=_contiguous(shape))
+
+
 def write_local(write, cache, new, pos, *, seq_dim: int) -> None:
     """Run the in-place ``write(cache, new, pos)`` on each rank's own
     shard of the DTensor ``cache``: an index write cannot keep a sharded

@@ -20,6 +20,11 @@ that they run beside its other tests.
   and 8 ranks in both ``replica_groups`` forms against the same
   collective on a fake group.
 * The 16 x 16 product counts one device's flops and two all-gathers.
+* A Shard->Shard redistribution inside ``dryrun.card_alltoall`` counts
+  the all-to-all the card's mesh sends, equal to ``hlo_stats``'s count of
+  the same all-to-all; outside it, and on real tensors of a 2-rank gloo
+  mesh inside it too, DTensor keeps its own path (the CPU mesh's
+  all-gather and chunk), and the hook is undone after an exception.
 * Every arch's smoke config, ``ShapeConfig(kind, 32, 8, kind)``, train
   at 2 microbatches, against the reference's compiled HLO: on a 1 x 1
   mesh prefill and decode flops equal, train three quarters of the
@@ -28,9 +33,12 @@ that they run beside its other tests.
   formula from the shapes; on the (2, 4) mesh every cell counts, the
   arguments' bytes equal, train flops exactly the 1 x 1 count over 8,
   prefill and decode flops within 10%, and collectives present exactly
-  where the reference has them; on a ("pod", "data", "model") 2 x 2 x 2
-  mesh qwen1.5-4b's and arctic-480b's arguments equal and collectives
-  where the reference has them.
+  where the reference has them, the MoE archs' train and prefill with
+  all-to-alls and within 1.25x the reference's collective bytes; on a
+  ("pod", "data", "model") 2 x 2 x 2 mesh qwen1.5-4b's and arctic-480b's
+  arguments equal and collectives where the reference has them; on every
+  mesh a cell counts all-to-alls exactly when DTensor redistributes
+  Shard->Shard in it.
 * zamba2 and rwkv smoke: the flops gap to the reference, from the shapes.
 * Work a mesh dim cannot divide is split, not repeated: rwkv's smoke
   prefill and decode on a (1, 8) mesh, whose ``model`` dim divides
@@ -48,11 +56,13 @@ that they run beside its other tests.
   arguments' bytes equal the rules' local shards of the real leaves.
 """
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 
 import pytest
 import torch
@@ -61,6 +71,7 @@ import torch.distributed._functional_collectives as funcol
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import _collective_utils, placement_types
 
 from repro.launch import hlo_stats as J_hlo
 from repro.launch import roofline as J_roof
@@ -72,7 +83,7 @@ from repro_torch.launch.op_stats import COLLECTIVES, OpStats
 from repro_torch.models.registry import get_model
 from repro_torch.pytree import flatten_with_path
 from repro_torch.launch import steps as ST
-from repro_torch.sharding import rules
+from repro_torch.sharding import perf, rules
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECURRENT = ("zamba2-7b", "rwkv6-3b")
@@ -87,6 +98,10 @@ POD = {"2x2x2": (2, 2, 2)}
 POD_AXES = ("pod", "data", "model")
 POD_ARCHS = ("qwen1.5-4b", "arctic-480b")
 FLOPS_REL = 0.10            # the (2, 4) mesh's flops against the reference
+#: the MoE archs, whose expert combine redistributes Shard->Shard
+MOE = ("arctic-480b", "qwen3-moe-235b-a22b")
+#: their (2, 4) train and prefill collective bytes against the reference's
+A2A_REL = 1.25
 #: a ``model`` dim of 8 over rwkv's 4 smoke heads: it divides neither
 #: the heads nor shards the rows, and divides every other product's dims
 UNEVEN = {"1x8": (1, 8)}
@@ -194,20 +209,35 @@ print("REF " + json.dumps(out))
 PORT_BODY = r'''
 import json, math
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor.placement_types import Shard
 from repro_torch.config import ShapeConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import dryrun
 
-out = {}
+# the Shard->Shard redistributions each cell runs (a method of the class,
+# which ``card_alltoall`` leaves as it is)
+moves = [0]
+to_new_shard_dim = Shard._to_new_shard_dim
+
+
+def counting(self, *a, **kw):
+    moves[0] += 1
+    return to_new_shard_dim(self, *a, **kw)
+
+
+Shard._to_new_shard_dim = counting
+out, redistributed = {}, {}
 for name, dims, axes, cells in GROUPS:
     with dryrun.fake_group(math.prod(dims)):
         mesh = init_device_mesh("cpu", dims, mesh_dim_names=axes)
         for key, arch, kind, seq, mb, weighting in cells:
+            moves[0] = 0
             out[key] = dryrun.cell_stats(
                 get_smoke_config(arch), ShapeConfig(kind, seq, 8, kind),
                 mesh, microbatches=mb if kind == "train" else None,
                 trip_weighting=weighting)
-print("PORT " + json.dumps(out))
+            redistributed[key] = moves[0]
+print("PORT " + json.dumps({"cells": out, "shard_to_shard": redistributed}))
 '''
 
 
@@ -227,7 +257,44 @@ for multi_pod, name, n in ((False, "pod16x16", 256),
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         out[f"arctic-480b|prefill|{name}|experts"] = dryrun.cell_stats(
             cfg, ShapeConfig("prefill", seq, batch, "prefill"), mesh)
-print("PORT " + json.dumps(out))
+print("PORT " + json.dumps({"cells": out, "shard_to_shard": {}}))
+'''
+
+
+GLOO_BODY = r'''
+import datetime, json
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Shard, distribute_tensor
+from repro_torch.launch import dryrun
+from repro_torch.launch.op_stats import OpStats
+
+dist.init_process_group("gloo", init_method="file://" + STORE, rank=RANK,
+                        world_size=2, timeout=datetime.timedelta(seconds=60))
+mesh = init_device_mesh("cpu", (2,))
+full = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+x = distribute_tensor(full, mesh, [Shard(0)])
+out = {}
+
+
+def run(label):
+    with OpStats() as stats:
+        y = x.redistribute(mesh, [Shard(1)]).to_local()
+    out[label] = {"equal": torch.equal(y, full[:, 3 * RANK:3 * RANK + 3]),
+                  "counts": stats.coll_counts}
+
+
+with dryrun.card_alltoall():
+    run("inside the window")
+try:
+    with dryrun.card_alltoall():
+        raise RuntimeError("boom")
+except RuntimeError:
+    pass
+run("after an exception in it")
+dist.destroy_process_group()
+print("GLOO " + json.dumps(out))
 '''
 
 
@@ -299,8 +366,11 @@ def procs():
     port = [_start(f"GROUPS = {groups!r}\n" + PORT_BODY)
             for groups in _port_groups()]
     port.append(_start(f"POD_CELL = {POD_CELL!r}\n" + POD_CELL_BODY))
-    yield {"ref": ref, "port": port}
-    for proc in ref + port:
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    gloo = [_start(f"STORE = {store!r}\nRANK = {rank}\n" + GLOO_BODY)
+            for rank in range(2)]
+    yield {"ref": ref, "port": port, "gloo": gloo}
+    for proc in ref + port + gloo:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -326,12 +396,20 @@ def _cell_record(arch, kind, cfg, mesh_name, stats) -> dict:
 
 
 @pytest.fixture(scope="module")
-def counted(procs):
-    """Every record the port's subprocesses counted, by key."""
-    out = {}
+def counted_parts(procs):
+    """Every record the port's subprocesses counted, by key, and the
+    Shard->Shard redistributions each smoke cell ran."""
+    out, moves = {}, {}
     for part in _collect(procs["port"], "PORT "):
-        out.update(part)
-    return out
+        out.update(part["cells"])
+        moves.update(part["shard_to_shard"])
+    return out, moves
+
+
+@pytest.fixture(scope="module")
+def counted(counted_parts):
+    """Every record the port's subprocesses counted, by key."""
+    return counted_parts[0]
 
 
 @pytest.fixture(scope="module")
@@ -460,6 +538,98 @@ def test_collectives_equal_hlo_stats(kind, n, form):
     assert got.coll_bytes == want.coll_bytes
     assert got.coll_counts == want.coll_counts
     assert got.coll_bytes[kind] > 0 and got.coll_counts[kind] == 1
+
+
+def _shard_to_shard(n: int, window):
+    """Shard(0) -> Shard(1) of a (16 n, 8) float32 DTensor on a fake
+    group of ``n`` ranks and a ``cpu`` mesh, counted inside ``window``:
+    each rank's (16, 8) shard becomes (16 n, 8 / n)."""
+    with dryrun.fake_group(n):
+        mesh = init_device_mesh("cpu", (n,))
+        fake_mode = FakeTensorMode()
+        with fake_mode:
+            x = DTensor.from_local(torch.empty(16, 8), mesh, [Shard(0)],
+                                   run_check=False)
+        with window, OpStats(fake_mode) as stats:
+            y = x.redistribute(mesh, [Shard(1)])
+    assert y.to_local().shape == (16 * n, 8 // n)
+    return stats.summary()
+
+
+@pytest.mark.parametrize("form", ["iota", "list"])
+def test_card_alltoall_equals_hlo_stats(form):
+    """Inside ``card_alltoall`` a Shard->Shard redistribution on a 4-rank
+    ``cpu`` mesh counts what the card's NCCL mesh sends: one all-to-all of
+    the local shard, bytes and counts equal to ``hlo_stats``'s for the
+    same all-to-all, and no all-gather."""
+    want = J_hlo.analyze(_collective_hlo("all-to-all", 4, form))
+    got = _shard_to_shard(4, dryrun.card_alltoall())
+    assert got.coll_bytes == want.coll_bytes
+    assert got.coll_counts == want.coll_counts
+    assert got.coll_counts["all-to-all"] == 1
+    assert got.coll_bytes["all-to-all"] == 16 * 8 * 4 * 3 / 4
+
+
+def test_card_alltoall_is_undone_after_the_window():
+    """The hook rebinds ``shard_dim_alltoall`` where DTensor looks it up
+    and restores both on exit, an exception included; after it the
+    ``cpu`` mesh's Shard->Shard is DTensor's own fallback again, an
+    all-gather of n times the bytes and no all-to-all."""
+    def bound():
+        return (_collective_utils.shard_dim_alltoall,
+                placement_types.shard_dim_alltoall)
+
+    before = bound()
+    with dryrun.card_alltoall():
+        assert bound()[1] is not before[1]
+    assert bound() == before
+    with pytest.raises(RuntimeError, match="boom"):
+        with dryrun.card_alltoall():
+            raise RuntimeError("boom")
+    assert bound() == before
+    got = _shard_to_shard(4, contextlib.nullcontext())
+    assert got.coll_counts == {**{c: 0.0 for c in COLLECTIVES},
+                               "all-gather": 1.0}
+    assert got.coll_bytes["all-gather"] == 16 * 8 * 4 * 4 * 3 / 4
+
+
+def test_gloo_mesh_keeps_dtensors_own_path(procs):
+    """Two gloo ranks on real tensors: inside ``card_alltoall`` and after
+    an exception in it, Shard(0) -> Shard(1) gives each rank its columns
+    of the whole tensor by DTensor's own path, one all-gather and no
+    all-to-all (gloo has none)."""
+    for rank, out in enumerate(_collect(procs["gloo"], "GLOO ")):
+        for label, got in out.items():
+            assert got["equal"], (rank, label)
+            assert got["counts"] == {**{c: 0.0 for c in COLLECTIVES},
+                                     "all-gather": 1.0}, (rank, label)
+
+
+@pytest.mark.parametrize("dim_sharded", [False, True])
+def test_pad_dim_pads_each_shard(dim_sharded):
+    """``perf.pad_dim`` (the prefill cache's pad, which DTensor's
+    ``constant_pad_nd`` cannot plan on the card's torch) on a (2, 4) fake
+    group: each rank pads its own shard, the placements kept, no
+    collective; a sharded pad dim is gathered whole first, one
+    all-gather."""
+    with dryrun.fake_group(8):
+        mesh = init_device_mesh("cpu", (2, 4))
+        pl = [Shard(0), Shard(1) if dim_sharded else Shard(2)]
+        fake_mode = FakeTensorMode()
+        with fake_mode:
+            x = DTensor.from_local(torch.empty(2, 3, 4), mesh, pl,
+                                   run_check=False)
+        with OpStats(fake_mode) as stats:
+            y = perf.pad_dim(x, 1, 5)
+    assert y.shape == ((4, 12 + 5, 4) if dim_sharded else (4, 3 + 5, 16))
+    want = [Shard(0), Replicate() if dim_sharded else Shard(2)]
+    assert list(y.placements) == want
+    assert y.to_local().shape == (2, y.shape[1], 4)
+    assert stats.coll_counts == {**{c: 0.0 for c in COLLECTIVES},
+                                 "all-gather": float(dim_sharded)}
+    plain = torch.arange(24.0).reshape(2, 3, 4)
+    assert torch.equal(perf.pad_dim(plain, 1, 5), torch.cat(
+        [plain, torch.zeros(2, 5, 4)], 1))
 
 
 def test_product_on_the_pod_counts_one_device():
@@ -648,7 +818,9 @@ def test_smoke_2x4(ref, port, arch, kind):
     """The (2, 4) mesh: every cell counts; the arguments' bytes equal the
     reference's (whisper's decode step: but for the local shards of the
     parameters it does not read, ``test_smoke_1x1``); collectives present
-    where the reference has them.  Train: the port's per-device flops are
+    where the reference has them, and the MoE archs' train and prefill
+    with the all-to-alls of their expert combine, within ``A2A_REL`` of
+    the reference's collective bytes.  Train: the port's per-device flops are
     its 1 x 1 flops over the 8 devices exactly (no work replicated), for
     the archs without a 1 x 1 gap three quarters of the reference's 1 x 1
     count spread evenly (``test_smoke_1x1``); the reference's own (2, 4)
@@ -689,6 +861,25 @@ def test_smoke_2x4(ref, port, arch, kind):
             want -= (r1 - one) / 8
         assert abs(got - want) <= FLOPS_REL * want
     assert p["total_collective_bytes"] > 0 and r["coll"] > 0
+    if arch in MOE and kind != "decode":
+        assert p["collective_counts"]["all-to-all"] > 0
+        assert p["total_collective_bytes"] <= A2A_REL * r["coll"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_shard_to_shard_counts_all_to_all(counted_parts, arch, kind):
+    """On every mesh of the smoke cells, a cell counts all-to-alls exactly
+    when DTensor redistributed Shard->Shard in it
+    (``Shard._to_new_shard_dim``): the card's collective, not the ``cpu``
+    mesh's all-gather fallback (``dryrun.card_alltoall``)."""
+    cells, moves = counted_parts
+    keys = [k for k in moves if k.startswith(f"{arch}|{kind}|")]
+    assert keys
+    for key in keys:
+        a2a = cells[key]["collective_counts"]["all-to-all"]
+        print(f"{key}: {moves[key]} Shard->Shard, {a2a:.0f} all-to-all")
+        assert (moves[key] > 0) == (a2a > 0), key
 
 
 @pytest.mark.parametrize("kind", KINDS)
