@@ -194,10 +194,24 @@ lines:
     in its own process (the card visible) on a ``cuda`` mesh, DTensor's
     NCCL branch, and on the dry-run's ``cpu`` mesh with its all-to-all
     hook: flops, collective bytes and counts equal kind by kind,
-    all-to-alls on both.  Printed: seconds per cell,
-    DR1's per-device collective bytes and counts and roofline terms,
-    DR2's roofline fraction and the dry-run's peak estimate beside
-    ``max_memory_allocated``, DR3's two records;
+    all-to-alls on both, and both within 5% of the CPU build's count
+    (``DR3_COLL``); DR4 the 30 smoke cells of ``tests/test_torch_
+    dryrun.py`` on its (2, 4) fake mesh and the 10 train cells on 1 x 1,
+    counted on the card's own torch in one process with no card visible,
+    started right after the build: every cell counts, each train cell's
+    flops x 8 equal its 1 x 1 flops, every cell's flops equal the CPU
+    build's (``DR4_HERE``), the MoE train and prefill cells count an
+    all-to-all, and no cell's collective bytes exceed 1.05x the CPU
+    build's; DR4v zamba2-7b's, whisper-large-v3's and arctic-480b's
+    sharded train (2 microbatches), prefill and decode steps on a (2, 2)
+    gloo mesh of 4 CPU processes against the unsharded steps, within the
+    bounds of ``tests/test_torch_distribution.py`` (its job bodies,
+    ``repro_torch.launch.gloo_jobs``), started beside DR4.  Printed:
+    seconds per cell, DR1's per-device collective bytes and counts and
+    roofline terms, DR2's roofline fraction and the dry-run's peak
+    estimate beside ``max_memory_allocated``, DR3's two records, one
+    line a DR4 cell beside the CPU build's count, DR4v's largest
+    differences;
 15. phase EX — the port's entry points, the six examples of
     ``repro_torch.examples`` (counterparts of ``examples/*.py``), each
     ``main`` run on the card at the reference's sizes, steps and seeds'
@@ -3105,6 +3119,92 @@ DR_USEFUL = (0.05, 1.0)           # DR1's open-closed bounds on useful_ratio
 #: Shard->Shard redistributions at published width
 DR3_CELL = ("qwen3-moe-235b-a22b", "prefill_32k", 1)
 DR_HBM_REL = 0.01                 # DR2: card bytes against the dry-run's
+#: DR3's cell counted on the CPU build of torch 2.13 (the tests' torch):
+#: collective bytes per device; both meshes here within DR_REL of it
+DR3_COLL = 38930847847.5
+DR_REL = 1.05                     # DR3, DR4: collective bytes against those
+#: DR4's meshes: the tests' (2, 4) smoke mesh, and 1 x 1 for train
+DR4_MESHES = {"2x4": (2, 4), "1x1": (1, 1)}
+DR4_KINDS = ("train", "prefill", "decode")
+DR4_MOE = ("arctic-480b", "qwen3-moe-235b-a22b")
+#: DR4's cells counted on the CPU build of torch 2.13 (the tests' torch,
+#: ``tests/test_torch_dryrun.py``'s ``PORT_BODY``): {"arch|kind|mesh":
+#: (flops per device, collective bytes per device)}
+DR4_HERE = {
+    "arctic-480b|train|1x1": (574095360, 0.0),
+    "gemma-2b|train|1x1": (132120576, 0.0),
+    "gemma3-1b|train|1x1": (173015040, 0.0),
+    "internvl2-26b|train|1x1": (119537664, 0.0),
+    "qwen1.5-4b|train|1x1": (132120576, 0.0),
+    "qwen3-14b|train|1x1": (119537664, 0.0),
+    "qwen3-moe-235b-a22b|train|1x1": (769916928, 0.0),
+    "rwkv6-3b|train|1x1": (160432128, 0.0),
+    "whisper-large-v3|train|1x1": (171704320, 0.0),
+    "zamba2-7b|train|1x1": (255983616, 0.0),
+    "arctic-480b|train|2x4": (71761920, 5708072.0),
+    "arctic-480b|prefill|2x4": (23412736, 1902728.0),
+    "arctic-480b|decode|2x4": (747520, 93800.0),
+    "gemma-2b|train|2x4": (16515072, 1162776.0),
+    "gemma-2b|prefill|2x4": (4997120, 314880.0),
+    "gemma-2b|decode|2x4": (172032, 45728.0),
+    "gemma3-1b|train|2x4": (21626880, 2019352.0),
+    "gemma3-1b|prefill|2x4": (6701056, 621056.0),
+    "gemma3-1b|decode|2x4": (225280, 62144.0),
+    "internvl2-26b|train|2x4": (14942208, 1216024.0),
+    "internvl2-26b|prefill|2x4": (4472832, 335360.0),
+    "internvl2-26b|decode|2x4": (155648, 44192.0),
+    "qwen1.5-4b|train|2x4": (16515072, 1089816.0),
+    "qwen1.5-4b|prefill|2x4": (4997120, 290304.0),
+    "qwen1.5-4b|decode|2x4": (172032, 41760.0),
+    "qwen3-14b|train|2x4": (14942208, 1212824.0),
+    "qwen3-14b|prefill|2x4": (4472832, 335360.0),
+    "qwen3-14b|decode|2x4": (155648, 44192.0),
+    "qwen3-moe-235b-a22b|train|2x4": (96239616, 7860208.0),
+    "qwen3-moe-235b-a22b|prefill|2x4": (31571968, 2649548.0),
+    "qwen3-moe-235b-a22b|decode|2x4": (1002496, 111116.0),
+    "rwkv6-3b|train|2x4": (20054016, 3106456.0),
+    "rwkv6-3b|prefill|2x4": (6307840, 900632.0),
+    "rwkv6-3b|decode|2x4": (200704, 173160.0),
+    "whisper-large-v3|train|2x4": (21463040, 1760280.0),
+    "whisper-large-v3|prefill|2x4": (6668288, 509440.0),
+    "whisper-large-v3|decode|2x4": (184320, 44320.0),
+    "zamba2-7b|train|2x4": (31997952, 3355568.0),
+    "zamba2-7b|prefill|2x4": (10321920, 1548160.0),
+    "zamba2-7b|decode|2x4": (312832, 100360.0),
+}
+DR4_JOB = """
+import json, math, sys, time
+sys.path.insert(0, "src")
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.config import ShapeConfig
+from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+out = {{}}
+for name, dims in {meshes!r}.items():
+    kinds = {kinds!r} if name != "1x1" else ("train",)
+    with dryrun.fake_group(math.prod(dims)):
+        mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
+        for arch in ARCH_IDS:
+            for kind in kinds:
+                key = f"{{arch}}|{{kind}}|{{name}}"
+                try:
+                    r = dryrun.cell_stats(
+                        get_smoke_config(arch), ShapeConfig(kind, 32, 8, kind),
+                        mesh, microbatches=2 if kind == "train" else None)
+                    out[key] = {{"flops": r["flops_per_device"],
+                                "coll": r["total_collective_bytes"],
+                                "counts": r["collective_counts"]}}
+                except Exception as e:   # a cell that raises fails DR4
+                    err = f"{{type(e).__name__}}: {{e}}"
+                    out[key] = {{"error": err[:500]}}
+print("RECORD " + json.dumps({{"cells": out,
+                              "job_s": time.perf_counter() - t0}}), flush=True)
+"""
+#: DR4v's archs: their sharded steps against the unsharded ones on a
+#: (2, 2) gloo mesh of 4 CPU ranks (``repro_torch.launch.gloo_jobs``)
+DR4V_ARCHS = ("zamba2-7b", "whisper-large-v3", "arctic-480b")
+DR4V_RANKS = 8                    # DR4v's processes at once
 DR_JOB = """
 import dataclasses, json, sys, time
 t0 = time.perf_counter()
@@ -3154,7 +3254,53 @@ print("RECORD " + json.dumps(out), flush=True)
 """
 
 
-def dr_start(layers: int) -> dict:
+def dr4_job() -> tuple:
+    """Start DR4's smoke cells in one ``python3`` process with no card
+    visible.  Returns (Popen, log path)."""
+    import os
+
+    out = ROOT / "build" / "dr"
+    out.mkdir(parents=True, exist_ok=True)
+    log = out / "DR4.log"
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             DR4_JOB.format(meshes=DR4_MESHES, kinds=DR4_KINDS)],
+            cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=fh, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def dr4_start() -> dict:
+    """Start DR4 and DR4v, which touch no device, on the CPU with no card
+    visible: DR4's smoke cells in one ``python3`` process
+    (:func:`dr4_job`), DR4v's gloo jobs (``repro_torch.launch.gloo_jobs``,
+    4 ranks each, at most ``DR4V_RANKS`` processes at once) on threads
+    of this one.  The main path starts them first, so that they run
+    beside the card's phases.  Returns {"DR4": (Popen, log path),
+    "DR4v": Runner}."""
+    from repro_torch.launch import gloo_jobs
+
+    job = dr4_job()
+    runner = gloo_jobs.Runner(
+        [gloo_jobs.Job(f"DR4v {arch}", gloo_jobs.arch_body(arch), 4, 400,
+                       env={"CUDA_VISIBLE_DEVICES": ""})
+         for arch in DR4V_ARCHS], DR4V_RANKS)
+    return {"DR4": job, "DR4v": runner}
+
+
+def dr_stop(jobs: dict) -> None:
+    """Stop every process of phase DR still alive (``dr_start``'s and
+    ``dr4_start``'s)."""
+    for label, job in jobs.items():
+        if label == "DR4v":
+            job.stop()
+        elif job[0].poll() is None:
+            job[0].kill()
+            job[0].wait()
+
+
+def dr_start(layers: int, early=None) -> dict:
     """Start phase DR's CPU halves, each its own ``python3`` process with
     no card visible (the dry-run touches no device; its fake process
     group cannot share a process with SO's NCCL group): DR1's four cells
@@ -3163,16 +3309,17 @@ def dr_start(layers: int) -> dict:
     the one job that sees the card, ``DR3_CELL`` counted on a fake group
     over a ``cuda`` mesh and over the dry-run's ``cpu`` mesh, with its
     all-to-all hook and without (fake tensors allocate nothing on the
-    card).  They run beside TR and SO, which are bound
-    by the card.  Returns {label: (Popen, log path)}."""
+    card).  They run beside TR and SO, which are bound by the card.
+    DR4 and DR4v are ``early``'s (``dr4_start``'s), or started here.
+    Returns {label: (Popen, log path)}, and DR4v's runner."""
     import os
 
+    procs = dict(early if early is not None else dr4_start())
     out = ROOT / "build" / "dr"
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     jobs = {dr_label(*cell): (*cell, None) for cell in DR_CELLS}
     jobs["DR2 dry-run"] = ("qwen1.5-4b", "train_4k", False, layers)
-    procs = {}
     for label, (arch, shape, multi, n) in jobs.items():
         log = out / (label.replace(" ", "_") + ".log")
         code = DR_JOB.format(arch=arch, shape=shape, multi=multi, layers=n,
@@ -3253,13 +3400,90 @@ def dr3_check(dr3: dict) -> None:
     equal = {k: dr3["cuda"][k] == dr3["cpu"][k] for k in keys}
     excess = (dr3["cpu, no hook"]["total_collective_bytes"]
               / dr3["cuda"]["total_collective_bytes"])
+    ratio = {m: dr3[m]["total_collective_bytes"] / DR3_COLL
+             for m in ("cuda", "cpu")}
     print(f"DR3 cuda mesh == cpu mesh: {equal}; the cpu mesh without the "
-          f"hook counts {excess:.4f}x the cuda mesh's collective bytes",
-          flush=True)
+          f"hook counts {excess:.4f}x the cuda mesh's collective bytes; "
+          f"against torch 2.13's count {DR3_COLL:.6e}: cuda "
+          f"{ratio['cuda']:.4f}x, cpu {ratio['cpu']:.4f}x", flush=True)
     if not all(equal.values()) or not all(
             dr3[m]["collective_counts"]["all-to-all"] > 0
+            and ratio[m] <= DR_REL and 1 / ratio[m] <= DR_REL
             for m in ("cuda", "cpu")):
         raise AssertionError("phase DR: DR3 failed")
+
+
+def dr4_check(dr4: dict) -> None:
+    """DR4's gates on its job's record: every cell counts (a cell that
+    raised fails), each train cell's flops x 8 equal its 1 x 1 flops,
+    each cell's flops equal ``DR4_HERE``'s, the MoE train and prefill
+    cells count an all-to-all, and no cell's collective bytes exceed
+    ``DR_REL`` x ``DR4_HERE``'s.  One line a cell is printed."""
+    cells, bad = dr4["cells"], []
+    for key in sorted(DR4_HERE, key=lambda k: k.split("|")[::-1]):
+        arch, kind, mesh = key.split("|")
+        got, (flops, coll) = cells.get(key, {"error": "not counted"}), \
+            DR4_HERE[key]
+        if "error" in got:
+            print(f"DR4 {arch} x {kind} x {mesh}: {got['error']}",
+                  flush=True)
+            bad.append(key)
+            continue
+        a2a = int(got["counts"]["all-to-all"])
+        ratio = got["coll"] / coll if coll else float(got["coll"] == 0)
+        print(f"DR4 {arch} x {kind} x {mesh}: flops/device {got['flops']:.0f}"
+              f" (torch 2.13: {flops:.0f}); collective bytes/device "
+              f"{got['coll']:.0f} (torch 2.13: {coll:.0f}, {ratio:.4f}x); "
+              f"all-to-alls {a2a}", flush=True)
+        one = cells.get(f"{arch}|train|1x1", {}).get("flops")
+        if (got["flops"] != flops or got["coll"] > DR_REL * coll
+                or (kind == "train" and mesh == "2x4"
+                    and got["flops"] * 8 != one)
+                or (arch in DR4_MOE and kind != "decode" and mesh == "2x4"
+                    and a2a < 1)):
+            bad.append(key)
+    print(f"DR4: {len(DR4_HERE) - len(bad)} of {len(DR4_HERE)} cells "
+          f"within the gates in {dr4['job_s']:.1f} s", flush=True)
+    if bad:
+        raise AssertionError(f"phase DR: DR4 failed on {bad}")
+
+
+def dr4v_check(runner) -> None:
+    """DR4v's gate: each arch's sharded train (2 microbatches), prefill
+    and decode step within ``gloo_jobs.arch_departures``'s bounds of the
+    unsharded step, the bounds of ``tests/test_torch_distribution.py``;
+    a job that fails fails the phase.  Its largest differences are
+    printed."""
+    from repro_torch.launch import gloo_jobs
+
+    bad = []
+    for arch in DR4V_ARCHS:
+        name = f"DR4v {arch}"
+        try:
+            res = runner[name]
+        except AssertionError as e:
+            print(f"{name}: {str(e)[-3000:]}", flush=True)
+            bad.append(arch)
+            continue
+        t, p, d = res["train"], res["prefill"], res["decode"]
+        print(f"{name} on a (2, 2) gloo mesh, torch {_torch_version()}: "
+              f"train loss rel {t['loss_rel']:.3e}, grad norm rel "
+              f"{t['gnorm_rel']:.3e}, worst parameter {t['param_worst']:.3e}"
+              f"; prefill logits rel {p['logits_rel']:.3e}, cache rel "
+              f"{p['cache_rel']:.3e}; decode logits rel "
+              f"{d['logits_rel']:.3e}, cache rel {d['cache_rel']:.3e}; "
+              f"tokens equal {p['tokens_equal'] and d['tokens_equal']} "
+              f"({runner.jobs[name].seconds:.1f} s)", flush=True)
+        if gloo_jobs.arch_departures(res):
+            bad.append(arch)
+    if bad:
+        raise AssertionError(f"phase DR: DR4v failed on {bad}")
+
+
+def _torch_version() -> str:
+    import torch
+
+    return torch.__version__
 
 
 def path_dr(torch, args, kern_fused, procs) -> dict:
@@ -3286,10 +3510,14 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
          DTensor takes its own NCCL branch, and on the dry-run's ``cpu``
          mesh, where ``dryrun.card_alltoall`` stands in for DTensor's
          all-gather fallback: flops, collective bytes and collective
-         counts equal kind by kind, and all-to-alls counted on both (a
-         cuda mesh that cannot be built fails the phase); the ``cpu``
-         mesh without the hook, DTensor's all-gather fallback, is
-         printed beside them.
+         counts equal kind by kind, all-to-alls counted on both, and the
+         collective bytes within ``DR_REL`` of ``DR3_COLL`` (a cuda mesh
+         that cannot be built fails the phase); the ``cpu`` mesh without
+         the hook, DTensor's all-gather fallback, is printed beside
+         them;
+    DR4. the smoke cells on the card's torch (``dr4_check``);
+    DR4v. three archs' sharded steps on its gloo ranks
+         (``dr4v_check``).
     Printed: seconds per cell, DR1's per-device collective bytes and
     counts, DR2's roofline fraction and the dry-run's peak estimate
     (arguments + temporaries) beside ``max_memory_allocated``, DR3's two
@@ -3310,9 +3538,10 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
     t_dr = time.perf_counter()
     kern_fused.reset_launch_counts()
     base = get_config("qwen1.5-4b")
-    for proc, _ in procs.values():
+    runs = {k: v for k, v in procs.items() if k != "DR4v"}
+    for proc, _ in runs.values():
         proc.wait()
-    recs = {label: dr_record(label, job) for label, job in procs.items()}
+    recs = {label: dr_record(label, job) for label, job in runs.items()}
     for arch, shape_name, multi in DR_CELLS:
         label = dr_label(arch, shape_name, multi)
         rec = recs[label]
@@ -3346,6 +3575,8 @@ def path_dr(torch, args, kern_fused, procs) -> dict:
             raise AssertionError(f"phase DR: {label} failed")
 
     dr3_check(recs["DR3"])
+    dr4_check(recs["DR4"])
+    dr4v_check(procs["DR4v"])
 
     # DR2: TR's reduced cell, dry-run against the card
     dry = recs["DR2 dry-run"]
@@ -3559,11 +3790,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (sets the TF32 switches)
-    from repro_torch.configs import get_config
-    from repro_torch.core import analog as A
-    from repro_torch.core import errors as E
-    from repro_torch.kernels import build, ops, tolerance as tol
-    from repro_torch.kernels import fused as kern_fused
+    from repro_torch.kernels import build
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -3571,6 +3798,23 @@ def main() -> int:
     build.build_all()
     print(f"built {', '.join(build.SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    # phase DR's DR4 and DR4v touch no device: they run on the CPU beside
+    # every phase until path_dr reads them
+    dr4_jobs = dr4_start()
+    try:
+        return _main(args, torch, card, dr4_jobs)
+    finally:
+        dr_stop(dr4_jobs)
+
+
+def _main(args, torch, card, dr4_jobs) -> int:
+    """Every phase after the build, DR4 and DR4v already running."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import analog as A
+    from repro_torch.core import errors as E
+    from repro_torch.kernels import build, ops, tolerance as tol
+    from repro_torch.kernels import fused as kern_fused
+
     for name, report in build.PTXAS_REPORT.items():
         regs = [ln.strip() for ln in report.splitlines()
                 if "registers" in ln or "Compiling entry" in ln]
@@ -3660,16 +3904,13 @@ def main() -> int:
           f"{4 / rw['step_s']:.1f} tokens/s on {card}; B1 launches "
           f"{rw_launches}", flush=True)
     fam_launches = phase_fam(torch, kern_fused)
-    dr_jobs = dr_start(args.layers)
+    dr_jobs = dr_start(args.layers, dr4_jobs)
     try:
         tr, so, dr = (path_tr(torch, args, kern_fused),
                       path_so(torch, args, kern_fused),
                       path_dr(torch, args, kern_fused, dr_jobs))
     finally:
-        for proc, _ in dr_jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        dr_stop(dr_jobs)
     print(f"path TR step: {tr['step_s']:.3f} s, {tr['tokens_s']:.0f} "
           f"tokens/s, AdamW update {tr['update_s'] * 1e3:.1f} ms, peak "
           f"{tr['peak']:.2f} GiB, checkpoint {tr['ck_gb']:.3f} GB saved in "

@@ -150,14 +150,16 @@ def _storages(tree) -> set:
 
 
 def cell_stats(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
-               microbatches=None, trip_weighting: bool = True) -> dict:
+               microbatches=None, trip_weighting: bool = True,
+               watch=None) -> dict:
     """One cell on ``mesh`` (a ``DeviceMesh`` over a fake group): the
     step from ``launch.steps.build_step``, its inputs made as fake tensors
     and placed by the rules before the count starts (the reference's
     arguments arrive placed), then the step run once inside
     ``OpStats``'s window, its Shard->Shard redistributions sent as the
-    card's all-to-all (:func:`card_alltoall`).  Returns the record's
-    measured fields."""
+    card's all-to-all (:func:`card_alltoall`).  ``watch`` sees every op
+    of the window that reaches DTensor's dispatch (``OpStats``).  Returns
+    the record's measured fields."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     kw = {"microbatches": microbatches} if shape.kind == "train" else {}
@@ -172,7 +174,8 @@ def cell_stats(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             for s, sp in zip(structs, specs))
     t0 = time.perf_counter()
     with card_alltoall(), \
-            OpStats(fake_mode, trip_weighting=trip_weighting) as stats:
+            OpStats(fake_mode, trip_weighting=trip_weighting,
+                    watch=watch) as stats:
         out = fn(*args)
     trace_s = time.perf_counter() - t0
 

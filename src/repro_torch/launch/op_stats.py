@@ -189,12 +189,17 @@ class OpStats(TorchDispatchMode):
     a tensor the step makes is fake too, but never leaves it on the mode
     stack: DTensor's sharding propagation runs each new op once on fake
     global tensors under the fake mode it finds there, and so makes its
-    own, whose ops are not the step's and are skipped."""
+    own, whose ops are not the step's and are skipped.  ``watch``, if
+    given, is called as ``watch(func, args, kwargs)`` with every op that
+    reaches DTensor's dispatch inside the window, before DTensor plans
+    it (its operands still DTensors); it counts nothing."""
 
-    def __init__(self, fake_mode=None, *, trip_weighting: bool = True):
+    def __init__(self, fake_mode=None, *, trip_weighting: bool = True,
+                 watch=None):
         super().__init__()
         self.fake_mode = fake_mode
         self.trip_weighting = trip_weighting
+        self.watch = watch
         self.flops = 0.0
         self.hbm_bytes = 0.0
         self.coll_bytes = {c: 0.0 for c in COLLECTIVES}
@@ -220,6 +225,8 @@ class OpStats(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
+            if self.watch is not None:
+                self.watch(func, args, kwargs)
             return NotImplemented         # DTensor runs it on local tensors
         ins = _tensors((args, kwargs))
         if self._foreign(ins) or _active_fake_mode() is not None:

@@ -30,9 +30,16 @@ inserts its collectives:
   cost model counts communication only, and left every row on every
   rank, the product replicated over ``model``; heads are split only
   where the mesh divides them (``sharding.perf.split_heads``);
-* ``models.transformer._embed`` — each rank looks up its own shard of
-  the table (``sharding.perf.local_embedding``): the card's torch has no
-  DTensor plan for an indexed table's backward;
+* ``models.transformer._embed``, ``models.hybrid._embed`` and
+  ``models.encdec._embed`` — each rank looks up its own shard of the
+  table (``sharding.perf.local_embedding``), and the rows come out laid
+  out as the batch (``batch_rows``): the card's torch has no DTensor
+  plan for an indexed table's backward;
+* ``models.layers.norm`` — a layer norm's d is made whole first
+  (``replicate_dims``), and each rank normalizes its own rows;
+* ``models.ssm.mamba_block`` — each rank convolves its own rows and
+  channels (``sharding.perf.local_channels``), and the out-norm's
+  gradient keeps its input's layout (``grad_layout``);
 * ``train.step`` — the gather of the targets' logits replicates the
   vocab dim of vocab-sharded logits first
   (``sharding.perf.replicate_dims``), and each microbatch is laid out
@@ -44,14 +51,23 @@ inserts its collectives:
 * ``models.mlp.moe_block`` — the load fraction counts one-hots
   (``bincount`` has no sharding strategy), and the dispatch buffers are
   made like the token rows (``new_zeros``), so they are DTensors too;
+  the dispatch and the combine gather rows on each rank
+  (``sharding.perf.local_gather``: no index op of a sharded DTensor),
+  the experts' operands are split as their weights
+  (``operand_like``, ``partial_to_shard``), the combine reads the
+  experts' columns (``rows_to_columns``, one all-to-all) and its output
+  is laid out as the token rows came in (``layout_like``), and the
+  router's gradient is split by rows over the whole mesh
+  (``grad_rows``);
 * ``models.layers.rope`` spells its roll as a concat of halves (``roll``
   has no strategy on the card's torch), and ``models.layers.dense`` its
   product as one 2-D ``mm`` (``matmul`` would pick ``bmm`` from a
   DTensor's strides at a size-1 dim): both the same values as before.
 
 On one rank every one of these is the plain path's arithmetic; across
-ranks the fold of attention's position blocks and the embedding's
-gradient sum in another order.
+ranks the fold of attention's position blocks, and the gradients of the
+embedding (dense, hybrid and encoder-decoder families alike) and of the
+MoE gathers, sum in another order.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ from repro_torch.models.layers import dense, norm, remat_call
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.transformer import (_layer, _norm_init, _tokens,
                                             compute_dtype)
-from repro_torch.sharding.perf import pad_dim
+from repro_torch.sharding.perf import batch_rows, local_embedding, pad_dim
 
 
 def _sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -142,6 +142,13 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(x, params["embed"].T, "lm_head", None).to(torch.float32)
 
 
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``, looked up as the dense family's
+    (``transformer._embed``): on a mesh each rank in its shard of the
+    table, the rows laid out as the batch."""
+    return batch_rows(local_embedding(params["embed"], tokens))
+
+
 def _prompt(cfg, params, tokens, frames, remat: bool = False):
     """(decoder input embeddings, cross K/V) of a prompt and its frames."""
     dt = compute_dtype(cfg)
@@ -150,7 +157,7 @@ def _prompt(cfg, params, tokens, frames, remat: bool = False):
     cross_kv = _stack_cross_kv(cfg, params,
                                encode(cfg, params, frames, remat=remat))
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(dt) \
+    x = _embed(params, tokens).to(dt) \
         + _sinusoid(s, cfg.d_model, tokens.device)[None].to(dt)
     return x, cross_kv
 
@@ -205,7 +212,7 @@ def decode_step(cfg: ModelConfig, params: dict, token, cache: dict, *,
     dt = compute_dtype(cfg)
     token = _tokens(params, token)
     t = cache["len"]
-    x = params["embed"][token].to(dt) \
+    x = _embed(params, token).to(dt) \
         + _sinusoid_rows(t.reshape(1), cfg.d_model)[None].to(dt)
     kv = {"k": cache["k"], "v": cache["v"]}
     x, kv = _decoder(cfg, params, x,

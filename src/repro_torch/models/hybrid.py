@@ -29,6 +29,7 @@ from repro_torch.models.layers import norm, remat_call
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.transformer import (_head, _layer, _norm_init,
                                             _tokens, compute_dtype)
+from repro_torch.sharding.perf import batch_rows, local_embedding
 
 
 def attn_positions(cfg: ModelConfig):
@@ -107,7 +108,11 @@ def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, *, positions,
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens) -> torch.Tensor:
-    return params["embed"][_tokens(params, tokens)].to(compute_dtype(cfg))
+    """Token embeddings in ``cfg.dtype``, looked up as the dense family's
+    (``transformer._embed``): on a mesh each rank in its shard of the
+    table, the rows laid out as the batch."""
+    return batch_rows(local_embedding(
+        params["embed"], _tokens(params, tokens))).to(compute_dtype(cfg))
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *, pack=None,

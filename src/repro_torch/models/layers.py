@@ -23,7 +23,7 @@ from repro_torch.core.quant import calibrate_act_range, div_as_compiled
 from repro_torch.hw.profile import SiteSpecs
 from repro_torch.pytree import leaves
 from repro_torch.sharding.perf import (contract_model, local_attention,
-                                      product_rows)
+                                      product_rows, replicate_dims)
 
 NEG_INF = -1e30
 
@@ -121,8 +121,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
-    """Norm with its parameters cast to the activations' dtype first."""
+    """Norm with its parameters cast to the activations' dtype first.  On
+    a mesh a layer norm's d is made whole first (each rank normalizes its
+    own rows, and the products after it split their columns): the two
+    torch versions' planners otherwise split its two statistics
+    differently, one of them deferring them through the normalized
+    activations."""
     if kind == "layernorm":
+        x = replicate_dims(x, -1)
         return layer_norm(x, p["scale"].to(x.dtype), p["bias"].to(x.dtype))
     return rms_norm(x, p["scale"].to(x.dtype))
 

@@ -35,9 +35,11 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import div_as_compiled
 from repro_torch.models.layers import ACTIVATIONS, AnalogCtx, dense
-from repro_torch.sharding.perf import (FLAGS, constraint, contract_like,
-                                      grad_layout, product_rows,
-                                      replicate_dims)
+from repro_torch.sharding.perf import (FLAGS, batch_rows, constraint,
+                                      contract_like, grad_layout, grad_rows,
+                                      layout_like, local_gather, operand_like,
+                                      partial_to_shard, product_rows,
+                                      replicate_dims, rows_to_columns)
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, n_layers: int,
@@ -98,8 +100,8 @@ def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
 def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
     """Float32 softmax gates (T, E) and the renormalized top-k (weights,
     expert ids), ties to the lower expert index."""
-    gates = torch.softmax(xt.to(torch.float32) @ router.to(torch.float32),
-                          dim=-1)
+    gates = torch.softmax(grad_rows(xt.to(torch.float32)
+                                    @ router.to(torch.float32)), dim=-1)
     order = torch.sort(gates, dim=-1, descending=True, stable=True).indices
     topi = order[:, :k]
     topw = torch.gather(gates, 1, topi)
@@ -122,11 +124,22 @@ def _dispatch(topi: torch.Tensor, e: int, cap: int):
 
 def _experts(p: dict, xe: torch.Tensor, act: str) -> torch.Tensor:
     """The experts' gated MLP on (E, C, d) rows, weights cast to the rows'
-    dtype."""
+    dtype.  On a mesh the rows' experts and d are first split as
+    ``w_gate``'s (and ``w_up``'s) are, so each rank multiplies its own
+    slice, and the partial sums of a split d are reduced into shards of
+    the capacity: the layout the two torch versions' planners otherwise
+    choose differently (the card's replicated the capacity over
+    ``data``, and each of its ranks repeated the experts' work)."""
     fn = ACTIVATIONS[act]
     dt = xe.dtype
-    g = fn(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(dt)))
-    h = g * torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(dt))
+    xe = operand_like(xe, p["w_gate"], (2, 1), (0, 0))
+
+    def product(w):
+        return partial_to_shard(
+            torch.einsum("ecd,edf->ecf", xe, w.to(dt)), 1)
+
+    g = fn(product(p["w_gate"]))
+    h = g * product(p["w_up"])
     # on a mesh, f split as w_down's is, so each rank multiplies its slice
     h = contract_like(h, p["w_down"], 2, 1)
     return torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
@@ -165,9 +178,13 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # it; the dropped ones all land on the overflow row, which is cut off.
     # On a mesh the write is out of place on whole operands, the layout
     # the in-place write took: the card's torch has no DTensor strategy
-    # for an in-place ``index_put_``
-    xbuf = xt.new_zeros((e * cap + 1, d)).index_put(
-        (replicate_dims(dest, 0),), replicate_dims(xt[tok], 0, 1))
+    # for an in-place ``index_put_``.  The token rows are gathered whole
+    # and each rank picks its assignments' rows itself (``local_gather``):
+    # no index op of a sharded DTensor, whose backward the card's torch
+    # plans on rows past a shard
+    xbuf = replicate_dims(xt.new_zeros((e * cap + 1, d)), 0, 1).index_put(
+        (replicate_dims(dest, 0),),
+        local_gather(replicate_dims(xt, 0, 1), tok))
     # its gradient arrives laid out like the experts' outputs (on a mesh,
     # experts and capacity both sharded), which the flattened rows' view
     # would turn into a strided shard: it is laid out as the buffer first
@@ -197,14 +214,18 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     # ---- combine: a token's k slots summed in ascending order ----------
     # capacity whole before it flattens with the experts (a shard of it
-    # inside the flattened rows would be a strided shard)
-    yflat = replicate_dims(ye, 1).reshape(e * cap, d)
+    # inside the flattened rows would be a strided shard); on a mesh the
+    # experts' rows are then exchanged for columns (one all-to-all), and
+    # each rank gathers its own tokens' rows of its columns
+    yflat = rows_to_columns(replicate_dims(ye, 1).reshape(e * cap, d))
     contrib = torch.where(keep, wgt, torch.zeros_like(wgt))[:, None] \
-        * yflat[torch.clamp(dest, max=e * cap - 1)]
+        * local_gather(yflat, batch_rows(torch.clamp(dest, max=e * cap - 1)))
     contrib = contrib.reshape(t, k, d)
     y = xt.new_zeros((t, d))
     for j in range(k):
         y = y + contrib[:, j]
+    # on a mesh, laid out as the token rows came in
+    y = layout_like(y, xt)
 
     if aux is not None:
         aux["moe/lb_loss"] = lb_loss

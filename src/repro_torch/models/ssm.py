@@ -28,7 +28,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.layers import AnalogCtx, dense, rms_norm
 from repro_torch.models.recurrent import chunked_decay_recurrence, decay_step
 from repro_torch.sharding.perf import (grad_layout, local_recurrence,
-                                      split_heads)
+                                      local_channels, split_heads)
 
 CONV_W = 4  # depthwise conv window
 
@@ -71,19 +71,24 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 carry: Optional[torch.Tensor] = None):
-    """Depthwise causal conv.  x: (B, S, C); w: (W, C) in x's dtype;
-    carry: (B, W-1, C).  Returns (silu(out), new carry)."""
+def _conv_window(x: torch.Tensor, carry: Optional[torch.Tensor] = None):
+    """The depthwise causal conv's input window: ``carry`` (B, W-1, C;
+    zeros when None) followed by x (B, S, C)."""
     b, s, c = x.shape
     if carry is None:
         carry = torch.zeros((b, CONV_W - 1, c), dtype=x.dtype,
                             device=x.device)
-    xp = torch.cat([carry, x], dim=1)
+    return torch.cat([carry, x], dim=1)
+
+
+def _causal_conv(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the window ``xp`` (B, W-1+S, C); w: (W,
+    C) in xp's dtype.  Returns silu(out) (B, S, C)."""
+    s = xp.shape[1] - (CONV_W - 1)
     out = xp[:, 0:s] * w[0][None, None]
     for i in range(1, CONV_W):
         out = out + xp[:, i:i + s] * w[i][None, None]
-    return F.silu(out), xp[:, -(CONV_W - 1):]
+    return F.silu(out)
 
 
 def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -99,9 +104,11 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     zxbcdt = dense(x, p["in_proj"], "ssm_in", ctx, aux)
     z, xs, bc, dt = torch.split(zxbcdt, [din, din, 2 * st, h], dim=-1)
-    conv_out, conv_carry = _causal_conv(
-        torch.cat([xs, bc], dim=-1), p["conv_w"].to(x.dtype),
-        None if state is None else state["conv"])
+    xp = _conv_window(torch.cat([xs, bc], dim=-1),
+                      None if state is None else state["conv"])
+    # on a mesh each rank convolves its own rows and channels
+    conv_out = local_channels(_causal_conv, xp, p["conv_w"].to(x.dtype))
+    conv_carry = xp[:, -(CONV_W - 1):]
     xs = conv_out[..., :din].reshape(b, s, h, hd)
     bmat = conv_out[..., din:din + st]                   # (B, S, st)
     cmat = conv_out[..., din + st:]                      # (B, S, st)
@@ -128,7 +135,10 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     y = y + xs * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, din) * F.silu(z)
-    y = rms_norm(y, p["out_norm"].to(y.dtype))
+    # on a mesh, the norm's gradient kept split as its input and output
+    # are (the torch versions' planners otherwise split the sequence or
+    # the channels in its backward)
+    y = grad_layout(rms_norm(grad_layout(y), p["out_norm"].to(y.dtype)))
     out = dense(y, p["out_proj"], "ssm_out", ctx, aux)
     return out, {"ssm": new_ssm, "conv": conv_carry}
 

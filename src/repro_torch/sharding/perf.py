@@ -22,12 +22,22 @@ on both sides), :func:`contract_model` (a product split over ``model``
 by its contraction or its columns), :func:`grad_layout` (a gradient laid
 out as its value before a view), :func:`split_heads` (gather a dim the
 heads cannot split), :func:`replicate_dims` (replicate a dim before an
-op that needs it whole), :func:`local_embedding` (the lookup in each
-rank's shard of the table), :func:`write_local` (an in-place cache write
-on each rank's shard, at :func:`shard_offset`), :func:`local_attention`
-(attention on each rank's own rows, KV heads, queries or cache
-positions) and :func:`local_recurrence` (the state recurrence on each
-rank's own rows and heads).  Each leaves a plain tensor's path alone.
+op that needs it whole), :func:`local_embedding` and :func:`local_gather`
+(a lookup or gather in each rank's shard of the table),
+:func:`write_local` (an in-place cache write on each rank's shard, at
+:func:`shard_offset`), :func:`local_attention` (attention on each
+rank's own rows, KV heads, queries or cache positions),
+:func:`local_recurrence` (the state recurrence on each rank's own rows
+and heads) and :func:`local_channels` (a depthwise op on each rank's own
+rows and channels).  Each leaves a plain tensor's path alone.
+
+The card's torch (2.11) and the CPU build the tests run (2.13) plan some
+DTensor ops differently; where they did, the layout is spelled out:
+:func:`operand_like` and :func:`partial_to_shard` give an operand the
+layout DTensor would give it inside an op (its gradient passed back as
+it arrives), :func:`grad_rows` lays a gradient's rows over the whole
+mesh, :func:`rows_to_columns` and :func:`layout_like` lay a tensor out
+as a later op needs it.
 """
 
 from __future__ import annotations
@@ -170,7 +180,9 @@ def local_embedding(table, tokens):
     as vocabulary-parallel embeddings are written.
 
     Per mesh dim: where the tokens' rows are sharded (the batch rule),
-    the table is whole and the rows stay sharded; where the table's
+    the table is whole and the rows stay sharded, unless the table's d
+    is sharded there and all the tokens are fewer than a rank's rows of
+    the table (then the tokens are gathered); where the table's
     vocabulary is sharded, each rank looks up the tokens in its rows and
     zeroes the rest, a partial sum that one rank's nonzero row makes
     exact; where its d is sharded, so is the result's.  The backward
@@ -180,61 +192,109 @@ def local_embedding(table, tokens):
     if not isinstance(table, DTensor) or not any(
             p.is_shard() for p in table.placements):
         return table[tokens]
-    return _LocalEmbedding.apply(table, batch_rows(
-        _as_dtensor(tokens, table.device_mesh)))
+    mesh = table.device_mesh
+    tokens = batch_rows(_as_dtensor(tokens, mesh))
+    # where all the tokens are fewer than a rank's rows of the table (a
+    # decode step's), each mesh dim that splits the tokens' rows and the
+    # table's d gathers the tokens, and the table stays split
+    few = tokens.numel() < table.to_local().shape[0]
+    want = tuple(Replicate() if few and q.is_shard(0) and p.is_shard(1)
+                 else q for p, q in zip(table.placements, tokens.placements))
+    if want != tuple(tokens.placements):
+        tokens = tokens.redistribute(mesh, want)
+    return _LocalGather.apply(table, tokens, False)
 
 
-class _LocalEmbedding(torch.autograd.Function):
+def local_gather(table, idx):
+    """``table[idx]`` (``table`` (N, d), ``idx`` integers of any shape),
+    on a mesh gathered by each rank from its own shard, as
+    :func:`local_embedding` looks up, with ``idx`` laid out as it comes
+    (a plain tensor is replicated) and the result's rows laid out as
+    ``idx``.  The backward gathers the gradient's rows and their indices
+    over each mesh dim that shards ``idx``, and adds them into the rank's
+    shard of ``table``'s gradient in row order: a gradient as ``table``
+    is laid out, not a partial sum of the whole table (cheaper where
+    ``idx`` holds fewer rows than ``table``, as the MoE combine's
+    tokens against its expert buffer).  No index op reaches DTensor,
+    whose plans for an indexed DTensor's backward differ between torch
+    versions (the card's torch writes rows past a shard).  A plain
+    ``table`` takes ``table[idx]``."""
+    if not isinstance(table, DTensor):
+        return table[idx]
+    return _LocalGather.apply(table, _as_dtensor(idx, table.device_mesh),
+                              True)
+
+
+class _LocalGather(torch.autograd.Function):
+    """``table[tokens]`` from each rank's shard (:func:`local_embedding`,
+    :func:`local_gather`).  Per mesh dim: tokens sharded by rows keep the
+    table whole there and the result's rows sharded; a vocabulary shard
+    gives a partial sum, one rank's nonzero row; a shard of d shards the
+    result's last dim.  ``rows``: the backward gathers the gradient's
+    rows over the mesh dims that shard the tokens' rows, where it would
+    otherwise make the table's gradient a partial sum there."""
 
     @staticmethod
-    def forward(ctx, table, tokens):
+    def forward(ctx, table, tokens, rows):
         mesh = table.device_mesh
         t_pl, out_pl, g_pl = [], [], []
         for i, p in enumerate(table.placements):
             if tokens.placements[i].is_shard(0):
                 t_pl.append(Replicate())
                 out_pl.append(Shard(0))
-                g_pl.append(Partial())
+                g_pl.append(Replicate() if rows else Partial())
             elif p.is_shard(0):
                 t_pl.append(p)
                 out_pl.append(Partial())
                 g_pl.append(p)
             elif p.is_shard(1):
                 t_pl.append(p)
-                out_pl.append(Shard(2))
+                out_pl.append(Shard(tokens.ndim))
                 g_pl.append(p)
             else:
                 t_pl.append(Replicate())
                 out_pl.append(Replicate())
                 g_pl.append(Replicate())
         local = table.redistribute(mesh, tuple(t_pl)).to_local()
-        idx = tokens.to_local().long() - shard_offset(
-            table.shape[0], mesh, t_pl, 0)
+        offset = shard_offset(table.shape[0], mesh, t_pl, 0)
+        idx = tokens.to_local().long() - offset
         inside = (idx >= 0) & (idx < local.shape[0])
         idx = torch.clamp(idx, 0, local.shape[0] - 1)
         out = torch.where(inside[..., None], local[idx],
                           torch.zeros((), dtype=local.dtype,
                                       device=local.device))
-        ctx.save_for_backward(idx, inside)
+        ctx.save_for_backward(tokens.to_local() if rows else idx, inside)
         ctx.layout = (mesh, tuple(table.placements), tuple(out_pl),
-                      tuple(g_pl), tuple(local.shape))
+                      tuple(g_pl), tuple(local.shape), rows,
+                      tuple(tokens.placements), tuple(tokens.shape), offset)
         shape = tuple(tokens.shape) + (table.shape[1],)
         return DTensor.from_local(out, mesh, out_pl, run_check=False,
                                   shape=shape, stride=_contiguous(shape))
 
     @staticmethod
     def backward(ctx, grad):
+        (mesh, table_pl, out_pl, g_pl, local_shape, rows, tok_pl,
+         tok_shape, offset) = ctx.layout
         idx, inside = ctx.saved_tensors
-        mesh, table_pl, out_pl, g_pl, local_shape = ctx.layout
-        # the gradient of a partial sum is the whole gradient
-        want = tuple(Replicate() if p.is_partial() else p for p in out_pl)
+        # the gradient of a partial sum is the whole gradient; with
+        # ``rows`` every row of the token-sharded dims, and their indices
+        want = tuple(Replicate() if p.is_partial() or (rows and p.is_shard(0))
+                     else p for p in out_pl)
         g = grad.redistribute(mesh, want).to_local()
+        if rows:
+            whole = tuple(Replicate() if p.is_shard(0) else p for p in tok_pl)
+            idx = DTensor.from_local(
+                idx, mesh, tok_pl, run_check=False, shape=tok_shape,
+                stride=_contiguous(tok_shape)).redistribute(
+                    mesh, whole).to_local().long() - offset
+            inside = (idx >= 0) & (idx < local_shape[0])
+            idx = torch.clamp(idx, 0, local_shape[0] - 1)
         g = torch.where(inside[..., None], g,
                         torch.zeros((), dtype=g.dtype, device=g.device))
         acc = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
         acc.index_add_(0, idx.reshape(-1), g.reshape(-1, local_shape[1]))
         gt = DTensor.from_local(acc, mesh, g_pl, run_check=False)
-        return gt.redistribute(mesh, table_pl), None
+        return gt.redistribute(mesh, table_pl), None, None
 
 
 def product_rows(x):
@@ -274,13 +334,33 @@ def grad_layout(x):
     return _GradLayout.apply(x, tuple(x.placements))
 
 
+def grad_rows(x):
+    """``x`` (T, ...) unchanged, its gradient laid out with its rows split
+    over every mesh dim that divides them, every other dim whole: the
+    backward of the product that made ``x`` then splits its rows over
+    the whole mesh, and each rank computes its own rows' share (the two
+    torch versions' planners otherwise differ: one split the rows, the
+    other the product's other dim, leaving partial sums).  A plain
+    tensor, or one that records no gradient, comes back as it is."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    mesh, rows, pl = x.device_mesh, x.shape[0], []
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        pl.append(Shard(0) if rows % n == 0 else Replicate())
+        rows //= n if rows % n == 0 else 1
+    return _GradLayout.apply(x, tuple(pl))
+
+
 def contract_model(x, w):
     """``x`` (..., K) and ``w`` (K, N) laid out so that the product is
     split over ``model``: where ``w``'s K is sharded there, so is ``x``'s
     last dim (each rank multiplies its slice, a row-parallel product);
     where only ``x``'s is, ``w``'s K is sliced to match; where neither
-    is, ``w``'s N is (a column-parallel product), unless it is already or
-    the mesh does not divide it.  Each is a local slice, no data moves,
+    is, ``w``'s N is (a column-parallel product), unless it is already
+    (an N the mesh does not divide is split as ``torch.chunk`` splits it,
+    DTensor's uneven shard: rank 0's share is the largest).  Each is a
+    local slice, no data moves,
     and no value changes; plain tensors come back unchanged.  DTensor
     would otherwise plan a product, or its backward's, whole on every
     rank of ``model`` where that moves nothing, the same work repeated
@@ -307,8 +387,7 @@ def contract_model(x, w):
         return split(x, x.ndim - 1), w
     if k_x and not k_w and w.shape[0] % n == 0:
         return x, split(w, 0)
-    if not (k_w or k_x) and w.placements[i].is_replicate() \
-            and w.shape[1] % n == 0:
+    if not (k_w or k_x) and w.placements[i].is_replicate():
         return x, split(w, 1)
     return x, w
 
@@ -390,6 +469,82 @@ def replicate_dims(x, *dims: int):
     return x.redistribute(x.device_mesh, want)
 
 
+def operand_like(x, w, *pairs):
+    """``x`` laid out for a product with ``w``: for each ``(x_dim,
+    w_dim)`` of ``pairs``, on each mesh dim that shards ``w``'s
+    ``w_dim``, ``x``'s ``x_dim`` is sharded too (a replicated dim
+    sliced, another shard exchanged), so each rank multiplies its own
+    slice; the other placements stay.  As with the layout DTensor gives
+    an operand inside an op, the gradient passes back in the layout it
+    arrives in (:func:`_relayout`).  Plain tensors come back unchanged."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    want = list(x.placements)
+    for x_dim, w_dim in pairs:
+        for i, q in enumerate(w.placements):
+            if q.is_shard(w_dim):
+                want[i] = Shard(x_dim)
+    return _relayout(x, tuple(want))
+
+
+def partial_to_shard(x, dim: int):
+    """``x`` with each partial sum reduced into shards of tensor dim
+    ``dim`` (a reduce-scatter); the other placements stay, and the
+    gradient passes back in the layout it arrives in (:func:`_relayout`).
+    A plain tensor comes back unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    # one mesh dim at a time, major to minor: each a reduce-scatter (a
+    # single redistribution of several would all-reduce one of them)
+    for i, p in enumerate(x.placements):
+        if p.is_partial():
+            pl = list(x.placements)
+            pl[i] = Shard(dim)
+            x = _relayout(x, tuple(pl))
+    return x
+
+
+def _relayout(x, placements):
+    """``x`` redistributed to ``placements``, its gradient passed back as
+    it arrives: the layout DTensor gives an op's operand implicitly, where
+    the two torch versions' planners choose differently, spelled out."""
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return _Relayout.apply(x, tuple(placements))
+
+
+class _Relayout(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def layout_like(x, ref):
+    """``x`` laid out as the DTensor ``ref`` is (the same placements on
+    the same mesh).  A plain ``x`` or ``ref`` leaves ``x`` unchanged."""
+    if not (isinstance(x, DTensor) and isinstance(ref, DTensor)) \
+            or tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(x.device_mesh, ref.placements)
+
+
+def rows_to_columns(x):
+    """``x`` (N, d) with each mesh dim that shards its rows sharding its
+    columns instead (an all-to-all); the other placements stay.  A plain
+    tensor comes back unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(Shard(1) if p.is_shard(0) else p for p in x.placements)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def pad_dim(x, dim: int, n: int):
     """``x`` with ``n`` zeros appended along tensor dim ``dim``.  On a mesh
     each rank pads its own shard, ``dim`` made whole first: the card's
@@ -460,13 +615,15 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
     mesh dim that shards q's heads when H divides it: with the KV heads
     too where KV divides it (a rank's q heads then use exactly its KV
     heads), else, where the mesh dim's size is a multiple of KV, each rank
-    takes the one KV head its q heads share.  A mesh dim that shards
-    neither but shards the cache's positions (the rules' context-parallel
-    cache) keeps them split: each rank attends its own positions
-    (``attend``'s ``kv_start``, and its ``partial`` softmax state), and
-    the ranks fold their states together, the running max by an
-    all-reduce max and the sums by all-reduce sums, as the online softmax
-    folds its chunks.  A mesh dim that shards none of these splits the
+    takes the one KV head its q heads share.  A mesh dim that shards the
+    cache's positions (the rules' context-parallel cache) keeps them
+    split where it does not shard the rows and either does not shard q's
+    heads or q's (Sq x H) are fewer than the cache's (Skv x KV), so that
+    a decode step gathers its query's heads, not the cache: each rank
+    attends its own positions (``attend``'s ``kv_start``, and its
+    ``partial`` softmax state), and the ranks fold their states
+    together, the running max by an all-reduce max and the sums by
+    all-reduce sums, as the online softmax folds its chunks.  A mesh dim that shards none of these splits the
     heads the same way where H divides it, else the queries where Sq
     does (``q_offset`` shifted to the rank's first query; K and V whole),
     else the heads padded to a multiple of the mesh dim, as GSPMD splits
@@ -494,10 +651,17 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
     for i, p in enumerate(q_pl):
         n = mesh.size(i)
         even = padded is None     # no uneven head split before this dim
+        cache_split = k_pl[i].is_shard(1) and v_pl[i].is_shard(1)
         if (p.is_shard(0) or k_pl[i].is_shard(0)) and rows % n == 0:
             pl.append(Shard(0))
             kv_pl.append(Shard(0))
             rows //= n
+        elif cache_split and sq * heads < k.shape[1] * kv_heads:
+            # a cache split by positions holds more than the queries'
+            # heads: the queries are gathered, not the cache
+            pl.append(Replicate())
+            kv_pl.append(Shard(1))
+            seq_dims.append(i)
         elif (even and p.is_shard(2) and heads % n == 0
               and kv_heads % n == 0):
             pl.append(Shard(2))
@@ -509,7 +673,7 @@ def local_attention(attend, q, k, v, *, q_offset, kv_len, **kw):
             kv_pl.append(Replicate())
             pick = (i, n // kv_heads)
             heads, kv_heads = heads // n, 1
-        elif k_pl[i].is_shard(1) and v_pl[i].is_shard(1):
+        elif cache_split:
             pl.append(Replicate())
             kv_pl.append(Shard(1))
             seq_dims.append(i)
@@ -710,6 +874,47 @@ def local_recurrence(fn, r, k, v, log_w, s0, *, u=None, **kw):
     s_shape = (bsz, heads, r.shape[-1], v.shape[-1])
     return (_from_block(y.contiguous(), mesh, x_pl, y_shape, whole),
             _from_block(state, mesh, s_pl, s_shape, whole))
+
+
+def local_channels(fn, x, w):
+    """``fn(x, w)``, a depthwise op along the sequence (``x`` (B, S, C),
+    ``w`` (W, C), every channel its own; the result (B, S', C)), run by
+    each rank on its own block of rows and channels, the DTensor result
+    laid out as that block.  Per mesh dim: one that shards ``x``'s rows
+    keeps them sharded (``w`` whole, its gradient a partial sum of the
+    ranks' rows); one that shards ``w``'s channels splits ``x``'s the
+    same way; any other is whole.  DTensor would otherwise plan each
+    product of the window: the two torch versions differ (the card's
+    gathered the rows to follow the window's layout), and a planned
+    backward exchanges the saved operands.  A plain call goes straight
+    through."""
+    if not any(isinstance(t, DTensor) for t in (x, w)):
+        return fn(x, w)
+    mesh = next(t.device_mesh for t in (x, w) if isinstance(t, DTensor))
+    whole = (Replicate(),) * mesh.ndim
+    x_pl = tuple(x.placements) if isinstance(x, DTensor) else whole
+    w_pl = tuple(w.placements) if isinstance(w, DTensor) else whole
+    rows, cols, w_grad = [], [], []
+    for i in range(mesh.ndim):
+        if x_pl[i].is_shard(0):
+            rows.append(Shard(0))
+            cols.append(Replicate())
+            w_grad.append(Partial())
+        elif w_pl[i].is_shard(1):
+            rows.append(Shard(2))
+            cols.append(Shard(1))
+            w_grad.append(Shard(1))
+        else:
+            rows.append(Replicate())
+            cols.append(Replicate())
+            w_grad.append(Replicate())
+    rows = tuple(rows)
+    xb = _as_dtensor(x, mesh).redistribute(mesh, rows).to_local()
+    wb = _as_dtensor(w, mesh).redistribute(mesh, tuple(cols)).to_local(
+        grad_placements=tuple(w_grad))
+    y = fn(xb, wb)
+    return _from_block(y.contiguous(), mesh, rows,
+                       (x.shape[0], y.shape[1], x.shape[2]))
 
 
 def _pad_heads(t, dim: int, width: int):

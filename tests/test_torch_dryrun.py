@@ -102,10 +102,56 @@ FLOPS_REL = 0.10            # the (2, 4) mesh's flops against the reference
 MOE = ("arctic-480b", "qwen3-moe-235b-a22b")
 #: their (2, 4) train and prefill collective bytes against the reference's
 A2A_REL = 1.25
+#: the (2, 4) cells' collective bytes per device once their layouts were
+#: spelled out (the embedding lookup of zamba2 and whisper and a decode
+#: step's lookup, the MoE dispatch, experts and combine, the layer norm,
+#: Mamba2's conv, attention over a position-split cache): no cell may
+#: count more
+COLL_CEIL = {
+    "gemma-2b|train": 1162776,
+    "gemma-2b|prefill": 314880,
+    "gemma-2b|decode": 45728,
+    "gemma3-1b|train": 2019352,
+    "gemma3-1b|prefill": 621056,
+    "gemma3-1b|decode": 62144,
+    "qwen1.5-4b|train": 1089816,
+    "qwen1.5-4b|prefill": 290304,
+    "qwen1.5-4b|decode": 41760,
+    "qwen3-14b|train": 1212824,
+    "qwen3-14b|prefill": 335360,
+    "qwen3-14b|decode": 44192,
+    "arctic-480b|train": 5708072,
+    "arctic-480b|prefill": 1902728,
+    "arctic-480b|decode": 93800,
+    "qwen3-moe-235b-a22b|train": 7860208,
+    "qwen3-moe-235b-a22b|prefill": 2649548,
+    "qwen3-moe-235b-a22b|decode": 111116,
+    "zamba2-7b|train": 3355568,
+    "zamba2-7b|prefill": 1548160,
+    "zamba2-7b|decode": 100360,
+    "internvl2-26b|train": 1216024,
+    "internvl2-26b|prefill": 335360,
+    "internvl2-26b|decode": 44192,
+    "rwkv6-3b|train": 3106456,
+    "rwkv6-3b|prefill": 900632,
+    "rwkv6-3b|decode": 173160,
+    "whisper-large-v3|train": 1760280,
+    "whisper-large-v3|prefill": 509440,
+    "whisper-large-v3|decode": 44320,
+}
 #: a ``model`` dim of 8 over rwkv's 4 smoke heads: it divides neither
 #: the heads nor shards the rows, and divides every other product's dims
 UNEVEN = {"1x8": (1, 8)}
 UNEVEN_KINDS = ("prefill", "decode")
+#: the index writes whose operands must all be replicated on a mesh (the
+#: card's torch plans a sharded one's rows past a shard, or not at all)
+INDEX_PUTS = ("index_put", "index_put_", "_index_put_impl_")
+#: the same on the three-axis mesh
+POD_CEIL = {
+    "qwen1.5-4b|train": 1295904, "qwen1.5-4b|prefill": 211456,
+    "qwen1.5-4b|decode": 98096, "arctic-480b|train": 9939520,
+    "arctic-480b|prefill": 4567312, "arctic-480b|decode": 224064,
+}
 #: arctic-480b at published width, 1 layer and a 512-token vocabulary,
 #: prefilling 2048 x 512 tokens: prefill_32k's 2^20 tokens, so its
 #: experts' capacity, at a fifth of its trace time
@@ -209,7 +255,9 @@ print("REF " + json.dumps(out))
 PORT_BODY = r'''
 import json, math
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.placement_types import Shard
+from torch.utils._pytree import tree_leaves
 from repro_torch.config import ShapeConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import dryrun
@@ -226,18 +274,33 @@ def counting(self, *a, **kw):
 
 
 Shard._to_new_shard_dim = counting
-out, redistributed = {}, {}
+# every index write that reaches DTensor's dispatch, with its DTensor
+# operands' placements
+writes = []
+
+
+def watch(func, args, kwargs):
+    if func.overloadpacket.__name__ in INDEX_PUTS:
+        writes.append([str(func), [
+            str(p) for t in tree_leaves((args, kwargs))
+            if isinstance(t, DTensor) for p in t.placements]])
+
+
+out, redistributed, index_puts = {}, {}, {}
 for name, dims, axes, cells in GROUPS:
     with dryrun.fake_group(math.prod(dims)):
         mesh = init_device_mesh("cpu", dims, mesh_dim_names=axes)
         for key, arch, kind, seq, mb, weighting in cells:
             moves[0] = 0
+            writes.clear()
             out[key] = dryrun.cell_stats(
                 get_smoke_config(arch), ShapeConfig(kind, seq, 8, kind),
                 mesh, microbatches=mb if kind == "train" else None,
-                trip_weighting=weighting)
+                trip_weighting=weighting, watch=watch)
             redistributed[key] = moves[0]
-print("PORT " + json.dumps({"cells": out, "shard_to_shard": redistributed}))
+            index_puts[key] = list(writes)
+print("PORT " + json.dumps({"cells": out, "shard_to_shard": redistributed,
+                            "index_puts": index_puts}))
 '''
 
 
@@ -257,7 +320,8 @@ for multi_pod, name, n in ((False, "pod16x16", 256),
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         out[f"arctic-480b|prefill|{name}|experts"] = dryrun.cell_stats(
             cfg, ShapeConfig("prefill", seq, batch, "prefill"), mesh)
-print("PORT " + json.dumps({"cells": out, "shard_to_shard": {}}))
+print("PORT " + json.dumps({"cells": out, "shard_to_shard": {},
+                            "index_puts": {}}))
 '''
 
 
@@ -363,8 +427,8 @@ def procs():
     beside its tests that need neither."""
     ref = [_start(f"KINDS = {KINDS!r}\nJOBS = {jobs!r}\n" + REF_BODY)
            for jobs in _ref_jobs()]
-    port = [_start(f"GROUPS = {groups!r}\n" + PORT_BODY)
-            for groups in _port_groups()]
+    port = [_start(f"GROUPS = {groups!r}\nINDEX_PUTS = {INDEX_PUTS!r}\n"
+                   + PORT_BODY) for groups in _port_groups()]
     port.append(_start(f"POD_CELL = {POD_CELL!r}\n" + POD_CELL_BODY))
     store = os.path.join(tempfile.mkdtemp(), "store")
     gloo = [_start(f"STORE = {store!r}\nRANK = {rank}\n" + GLOO_BODY)
@@ -397,13 +461,15 @@ def _cell_record(arch, kind, cfg, mesh_name, stats) -> dict:
 
 @pytest.fixture(scope="module")
 def counted_parts(procs):
-    """Every record the port's subprocesses counted, by key, and the
-    Shard->Shard redistributions each smoke cell ran."""
-    out, moves = {}, {}
+    """Every record the port's subprocesses counted, by key, the
+    Shard->Shard redistributions each smoke cell ran and the index
+    writes that reached DTensor's dispatch in it."""
+    out, moves, writes = {}, {}, {}
     for part in _collect(procs["port"], "PORT "):
         out.update(part["cells"])
         moves.update(part["shard_to_shard"])
-    return out, moves
+        writes.update(part["index_puts"])
+    return out, moves, writes
 
 
 @pytest.fixture(scope="module")
@@ -831,7 +897,8 @@ def test_smoke_2x4(ref, port, arch, kind):
     (``test_recurrence_and_branch_gaps``).  rwkv's reference repeats part
     of its prefill and decode work on this mesh (its (2, 4) count x 8
     exceeds its 1 x 1 count); the port's count is then held to its own
-    1 x 1 count over the 8 devices, no work replicated."""
+    1 x 1 count over the 8 devices, no work replicated.  No cell counts
+    more collective bytes than ``COLL_CEIL``."""
     r, p = ref["cells"][f"{arch}|{kind}|2x4"], port[f"{arch}|{kind}|2x4"]
     got = p["flops_per_device"]
     one = port[f"{arch}|{kind}|1x1"]["flops_per_device"]
@@ -864,6 +931,7 @@ def test_smoke_2x4(ref, port, arch, kind):
     if arch in MOE and kind != "decode":
         assert p["collective_counts"]["all-to-all"] > 0
         assert p["total_collective_bytes"] <= A2A_REL * r["coll"]
+    assert p["total_collective_bytes"] <= COLL_CEIL[f"{arch}|{kind}"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -873,7 +941,7 @@ def test_shard_to_shard_counts_all_to_all(counted_parts, arch, kind):
     when DTensor redistributed Shard->Shard in it
     (``Shard._to_new_shard_dim``): the card's collective, not the ``cpu``
     mesh's all-gather fallback (``dryrun.card_alltoall``)."""
-    cells, moves = counted_parts
+    cells, moves, _ = counted_parts
     keys = [k for k in moves if k.startswith(f"{arch}|{kind}|")]
     assert keys
     for key in keys:
@@ -883,13 +951,73 @@ def test_shard_to_shard_counts_all_to_all(counted_parts, arch, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_index_writes_have_replicated_operands(counted_parts, arch, kind):
+    """Every index write (``aten.index_put*``) that reaches DTensor's
+    dispatch in a smoke cell, on every mesh, has only replicated DTensor
+    operands: the class of the card's torch's faults, which this torch
+    plans without failing (the embedding's backward met a ``Shard`` in
+    the card's ``prop_index_put``; the MoE gathers' backward wrote rows
+    past a shard on its gloo ranks).  A sharded lookup or gather goes
+    through ``sharding.perf.local_embedding``/``local_gather``, whose
+    writes are on local tensors.  The MoE cells' dispatch write is seen,
+    so the guard is not empty."""
+    _, _, writes = counted_parts
+    keys = [k for k in writes if k.startswith(f"{arch}|{kind}|")]
+    assert keys
+    for key in keys:
+        bad = [w for w in writes[key] if any(p != "R" for p in w[1])]
+        print(f"{key}: {len(writes[key])} index writes, {len(bad)} with a "
+              f"sharded operand {bad[:2]}")
+        assert not bad, key
+    if arch in MOE:
+        assert writes[f"{arch}|{kind}|2x4"], arch
+
+
+def test_watch_sees_dtensor_ops_inside_the_window_only():
+    """``OpStats(watch=...)``, the hook ``cell_stats`` passes on: inside
+    the window it sees an index write of a DTensor with its operands;
+    after the window, and after an exception in it, it sees nothing."""
+    seen = []
+
+    def watch(func, args, kwargs):
+        seen.append(func.overloadpacket.__name__)
+
+    with dryrun.fake_group(2):
+        mesh = init_device_mesh("cpu", (2,))
+        fake_mode = FakeTensorMode()
+        with fake_mode:
+            x = DTensor.from_local(torch.empty(4, 3), mesh, [Replicate()],
+                                   run_check=False)
+            idx, val = (DTensor.from_local(t, mesh, [Replicate()],
+                                           run_check=False)
+                        for t in (torch.tensor([0, 2]), torch.empty(2, 3)))
+
+        def write():
+            return x.index_put((idx,), val)
+
+        with OpStats(fake_mode, watch=watch):
+            write()
+        assert "index_put" in seen
+        n = len(seen)
+        with fake_mode:
+            write()
+        with pytest.raises(RuntimeError, match="boom"):
+            with OpStats(fake_mode, watch=watch):
+                raise RuntimeError("boom")
+        with fake_mode:
+            write()
+    assert len(seen) == n
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("arch", POD_ARCHS)
 def test_smoke_pod_mesh(ref, port, arch, kind):
     """The three axes of the two-pod mesh, ``("pod", "data", "model")``,
     at 2 x 2 x 2: the cell counts on 8 devices, the arguments' bytes equal
     the reference's, and collectives appear exactly where the
-    reference's have them; the flops are printed beside the
-    reference's."""
+    reference's have them, no more collective bytes than ``POD_CEIL``;
+    the flops are printed beside the reference's."""
     r, p = ref["cells"][f"{arch}|{kind}|2x2x2"], port[f"{arch}|{kind}|2x2x2"]
     print(f"{arch} {kind} 2x2x2: port flops/device "
           f"{p['flops_per_device']:.0f}, reference {r['flops']:.0f}; "
@@ -898,6 +1026,7 @@ def test_smoke_pod_mesh(ref, port, arch, kind):
     assert "error" not in p and p["n_devices"] == 8
     assert p["memory_analysis"]["argument_size_in_bytes"] == r["arg"]
     assert (p["total_collective_bytes"] > 0) == (r["coll"] > 0)
+    assert p["total_collective_bytes"] <= POD_CEIL[f"{arch}|{kind}"]
 
 
 def _branch_flops(cfg, b, s, kv_len) -> float:

@@ -312,6 +312,42 @@ def test_family_forward_logits_match_reference(arch):
     _close(lt, lj)
 
 
+def _parent_lookup(arch):
+    """The lookup zamba2 and whisper made before it went through
+    ``sharding.perf.local_embedding`` (``embed[tokens]``), as the module's
+    ``_embed`` it replaces."""
+    from repro_torch.models import encdec as TED
+    from repro_torch.models import hybrid as THY
+
+    if arch == "zamba2-7b":
+        return THY, lambda cfg, params, tokens: params["embed"][
+            TT._tokens(params, tokens)].to(TT.compute_dtype(cfg))
+    return TED, lambda params, tokens: params["embed"][tokens]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3"])
+def test_plain_lookup_is_the_indexed_table(arch, monkeypatch):
+    """On plain tensors the lookup through ``local_embedding`` and
+    ``batch_rows`` is ``embed[tokens]`` to the bit: the forward's logits,
+    prefill's and a decode step's are ``torch.equal`` to those of the
+    indexed table's lookup."""
+    _, tc, _, tp, tokens, pre = _family(arch)
+    api = t_model(tc)
+
+    def run():
+        lf = api.forward(tc, tp, _t(tokens), **_kw(pre, True))[0]
+        lp, cache = api.prefill(tc, tp, _t(tokens), S + 4, **_kw(pre, True))
+        ld, _ = api.decode_step(tc, tp, lp[:, -1].argmax(-1)[:, None], cache)
+        return lf, lp, ld
+
+    got = run()
+    module, lookup = _parent_lookup(arch)
+    monkeypatch.setattr(module, "_embed", lookup)
+    want = run()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_family_prefill_decode_matches_forward(arch):
     jc, tc, jp, tp, tokens, pre = _family(arch)
